@@ -1,0 +1,388 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on one card.
+
+    python3 chip_smoke.py
+
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in four phases,
+each printing one JSON line:
+
+1. build: the card's name and power limit (nvidia-smi) and the seconds that
+   nvcc took to build every kernel of the main path from ``unmore_tpu_torch/csrc``;
+2. kernel: ``fused_center_decode`` against its plain PyTorch version on the
+   card at the main path's shapes [256,128,128] and [32,128,128] (union
+   exact, scores to atol 2e-5, argmax equal where the score is > 1e-4),
+   with the kernel's and the plain version's times and the bound;
+3. main_path: ``ObjectDiscoveryEngine.discover_batch`` on two seeded uint8
+   images with DPT-Large (ViT-L/16, features 256, tanh bg-sdf) and the full
+   ResNet-50 classifier, seeded random weights, bf16 (a smaller canvas and
+   lattices, and thresholds set for random weights); launch counts are
+   zeroed just before and read just after, and every kernel of the path
+   must have launched; a run with the plain decode, made first, must give
+   the same results; model FLOPs are counted per crop and per phase;
+4. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops.
+
+Then the kernels' JSON line, the nvidia-smi line, and as the last line
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
+line; without a CUDA device it exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+KERNEL_SOURCES = {"decode": "unmore_tpu_torch/csrc/decode.cu"}
+
+
+class DptLarge:
+    """The main path's ObjectnessNet flags (the reference's canonical point)."""
+
+    backbone_type, sdf_activation, use_bg_sdf = "dpt_large", "tanh", True
+
+
+# the main path's cut: every value that differs from ReasoningConfig's default
+# (and center_score_max_thres, set from the data: see calibrate)
+MAIN_PATH_CUTS = dict(canvas_size=320, image_batch=2, max_proposals=512, max_splits=512,
+                      max_active=512, class_score_thres=0.0)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, iters=20, warmup=3):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def replaces_of(source: str) -> str:
+    """The TPU kernel a CUDA source replaces, from its 'Replaces:' note."""
+    m = re.search(r"Replaces:\s*(\S+)", Path(source).read_text())
+    if m is None:
+        fail(f"{source} names no TPU kernel it replaces")
+    return m.group(1)
+
+
+# ------------------------------------------------------------------ phase 2
+def decode_inputs(B, S, seed, device):
+    """Random fields, blob crops with real eroded interiors, and one
+    all-background crop."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    sdf = torch.randn(B, S, S, generator=g, device=device) * 2
+    center = torch.randn(B, S, S, 2, generator=g, device=device)
+    for b in range(min(B - 1, 8)):  # blobs of several sizes
+        m = 8 + 4 * b
+        sdf[b] = -1.0
+        sdf[b, m : S - m, m + b : S - m] = 2.0
+        center[b] *= 0.3
+    sdf[B - 1] = -1.0
+    center[B - 1] = 0.0
+    return sdf.contiguous(), center.contiguous()
+
+
+def decode_bound_ms(B, S, union, border=10, erode_k=9, erode_rounds=3, anti_k=5):
+    """Least time for the decode on an H100: the larger of the bytes it must
+    move (inputs read once, outputs written once) over HBM bandwidth and its
+    f32/compare operations over the f32 rate. The anti-center sum runs only
+    on eroded interior pixels of this run's union."""
+    from unmore_tpu_torch.ops.fields import batch_erode
+
+    n_bytes = B * S * S * (4 + 8 + 4) + B * (4 + 8)
+    eroded = batch_erode(union, erode_k, erode_rounds)
+    n_score = int(eroded[:, border : S - border, border : S - border].sum())
+    taps = anti_k * anti_k - 1
+    ops = B * S * S * (4 + 2 * erode_k * erode_rounds + 2) + n_score * (4 * taps + 1)
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes
+
+
+def phase_kernel(device):
+    import torch
+
+    from unmore_tpu_torch.ops.decode import fused_center_decode
+    from unmore_tpu_torch.ops.fields import center_singularity_scores
+
+    rows = {}
+    for B in (256, 32):
+        sdf, center = decode_inputs(B, 128, B, device)
+        got = fused_center_decode(sdf, center)
+        want = center_singularity_scores(sdf, center)
+        torch.cuda.synchronize()
+        if not torch.equal(got[2], want[2]):
+            fail(f"decode kernel union differs from the plain version at B={B}")
+        err = float((got[0] - want[0]).abs().max())
+        if not err <= 2e-5:
+            fail(f"decode kernel scores differ by {err} at B={B} (atol 2e-5)")
+        pos = want[0] > 1e-4
+        if int(pos.sum()) == 0:
+            fail(f"no crop gave a meaningful score at B={B}: the check would be empty")
+        if not torch.equal(got[1][pos], want[1][pos]):
+            fail(f"decode kernel argmax differs from the plain version at B={B}")
+        bound_ms, bound_by, n_bytes = decode_bound_ms(B, 128, want[2])
+        rows[B] = {
+            "shape": [B, 128, 128], "max_abs_err": err, "n_scored_crops": int(pos.sum()),
+            "ms": time_ms(lambda: fused_center_decode(sdf, center)),
+            "plain_ms": time_ms(lambda: center_singularity_scores(sdf, center)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+        }
+    emit({"phase": "kernel", "name": "fused_center_decode", "tolerance": {"scores_atol": 2e-5},
+          "results": list(rows.values())})
+    return rows
+
+
+# ------------------------------------------------------------------ phase 3
+def synthetic_images(seed):
+    """Two uint8 scenes: a few flat-coloured rectangles and discs on a
+    noisy background."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    images = []
+    for h, w in ((320, 320), (240, 300)):
+        img = (rng.rand(h, w, 3) * 40 + 100).astype(np.float32)
+        yy, xx = np.mgrid[:h, :w]
+        for _ in range(5):
+            colour = rng.rand(3) * 255
+            cy, cx = rng.randint(20, h - 20), rng.randint(20, w - 20)
+            r = rng.randint(15, 60)
+            if rng.rand() < 0.5:
+                sel = (np.abs(yy - cy) < r) & (np.abs(xx - cx) < r * 0.7)
+            else:
+                sel = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            img[sel] = colour
+        images.append(np.clip(img, 0, 255).astype(np.uint8))
+    return images
+
+
+def calibrate(objectness, image, cfg, device):
+    """``center_score_max_thres`` for random weights, whose singularity
+    scores lie far above a trained model's (every proposal would split and
+    none would reach the boundary phase): the median score over one chunk
+    of the image's seed crops, so that about half the proposals split and
+    half go on to the boundary rounds."""
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.ops.fields import center_singularity_scores
+    from unmore_tpu_torch.ops.image import crop_and_resize
+    from unmore_tpu_torch.reasoning.proposals import seed_proposals
+
+    seeds = seed_proposals(*image.shape[:2]).astype(np.float32)[: cfg.crop_chunk]
+    canvas = torch.from_numpy(image).to(device).float()[None] / 255.0
+    idx = torch.zeros(len(seeds), dtype=torch.long, device=device)
+    crops = crop_and_resize(canvas, torch.from_numpy(seeds).to(device), cfg.crop_size, cfg.gather_chunk, idx)
+    with torch.inference_mode():
+        out = objectness(crops)
+    sing = center_singularity_scores(out["sdf_maps"], out["center_fields"])[0]
+    return {"center_score_max_thres": float(sing.median())}
+
+
+def main_path_setup(device):
+    """DPT-Large + ResNet-50 in bf16 with seeded random weights, the two
+    seeded images and the main path's config (cuts plus calibration)."""
+    from unmore_tpu_torch.cli.common import (
+        build_classifier, build_objectness, init_random_variables, make_apply_fns,
+    )
+    from unmore_tpu_torch.reasoning.engine import ReasoningConfig
+
+    objectness = build_objectness(DptLarge, "bfloat16", device)
+    classifier = build_classifier("bfloat16", device)
+    init_random_variables(objectness, classifier, seed=0)
+    images = synthetic_images(seed=0)
+    cuts = dict(MAIN_PATH_CUTS, **calibrate(objectness, images[0], ReasoningConfig(), device))
+    return objectness, classifier, make_apply_fns(objectness, classifier), cuts, images
+
+
+def model_flops_per_crop(objectness, classifier, crop_size, device):
+    """Matmul and convolution FLOPs of one crop's forward, counted by
+    PyTorch's FlopCounterMode: (both heads, SDF head only, classifier)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    crop = torch.zeros(1, crop_size, crop_size, 3, device=device)
+    out = []
+    for fn in (lambda: objectness(crop), lambda: objectness(crop, compute_center=False), lambda: classifier(crop)):
+        counter = FlopCounterMode(display=False)
+        with torch.inference_mode(), counter:
+            fn()
+        out.append(counter.get_total_flops())
+    return out
+
+
+def executed_crops(n_live, chunk, tail):
+    """Crops a live-prefix map runs for ``n_live`` live rows: full chunks,
+    then tail chunks over the rest (dead rows in the last tail chunk run too)."""
+    full = (n_live // chunk) * chunk
+    return full + -(-(n_live - full) // tail) * tail
+
+
+def phase_main_path(device, kernel_counters):
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
+
+    objectness, classifier, fns, cuts, images = main_path_setup(device)
+    cfg = ReasoningConfig(**cuts)
+
+    # the same run with the decode's plain version, first: it warms cuDNN and
+    # the allocator up, and the kernel run below must give the same result
+    plain = ObjectDiscoveryEngine(*fns, ReasoningConfig(**cuts, use_decode_kernel=False), device=device)
+    t0 = time.perf_counter()
+    reference = plain.discover_batch(images)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+
+    engine = ObjectDiscoveryEngine(*fns, cfg, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    for counted in kernel_counters.values():
+        counted.launches = 0
+    t0 = time.perf_counter()
+    results = engine.discover_batch(images)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was not launched on the main path")
+
+    for img, res, ref in zip(images, results, reference):
+        b = res["boxes"]
+        if b.ndim != 2 or b.shape[1] != 4 or not np.isfinite(b).all():
+            fail(f"discover_batch returned malformed boxes {b.shape}")
+        h, w = img.shape[:2]
+        if len(b) and ((b[:, :2] < 0).any() or (b[:, 2] > w).any() or (b[:, 3] > h).any()):
+            fail("discover_batch returned boxes outside the image")
+        if res["stats"] != ref["stats"] or not np.array_equal(b, ref["boxes"]):
+            fail(f"kernel and plain decode disagree end to end: {res['stats']} vs {ref['stats']}")
+
+    s0 = results[0]["stats"]
+    B = cfg.image_batch
+    exist_tail = min(cfg.crop_chunk, cfg.exist_tile) if cfg.exist_tile > cfg.crop_chunk else cfg.tail
+    n_seed = sum(r["stats"]["n_seed"] for r in results)
+    n_split_kept = min(s0["n_split"], cfg.max_splits * B)
+    live = {"existence": n_seed + n_split_kept, "center": s0["n_center_in"],
+            "recheck_center": s0["n_recheck_center_in"], "boundary": sum(s0["boundary_active_trace"])}
+    executed = {
+        "existence": sum(executed_crops(n, cfg.exist_tile, exist_tail) for n in (n_seed, n_split_kept)),
+        "center": executed_crops(s0["n_center_in"], cfg.crop_chunk, cfg.tail),
+        "recheck_center": executed_crops(s0["n_recheck_center_in"], cfg.crop_chunk, cfg.tail),
+        "boundary": sum(executed_crops(n, cfg.crop_chunk, cfg.tail) for n in s0["boundary_active_trace"]),
+    }
+    both, sdf_only, cls = model_flops_per_crop(objectness, classifier, cfg.crop_size, device)
+    flops = (executed["existence"] * cls + (executed["center"] + executed["recheck_center"]) * both
+             + executed["boundary"] * sdf_only)
+    emit({
+        "phase": "main_path", "model": "dpt_large (vitl16_384, features 256, tanh bg-sdf) + resnet50, bf16",
+        "cuts": cuts, "crop_size": cfg.crop_size, "crop_chunk": cfg.crop_chunk,
+        "crop_chunk_tail": cfg.crop_chunk_tail, "wall_s": wall, "plain_decode_wall_s": plain_wall,
+        "live_crops_per_phase": live, "executed_crops_per_phase": executed,
+        "gflop_per_crop": {"objectness_both_heads": both / 1e9, "objectness_sdf_only": sdf_only / 1e9,
+                           "classifier": cls / 1e9},
+        "model_tflop": flops / 1e12, "achieved_tflop_per_s": flops / wall / 1e12,
+        "mfu_vs_989_tflops_bf16": flops / wall / 989e12,
+        "kernel_launches": launches, "max_memory_allocated_bytes": peak,
+        "stats": [r["stats"] for r in results], "n_boxes": [len(r["boxes"]) for r in results],
+    })
+    return objectness, images, launches
+
+
+# ------------------------------------------------------------------ phase 4
+def phase_bf16(device, objectness_bf16, images):
+    import torch
+
+    from unmore_tpu_torch.cli.common import build_objectness, init_random_variables
+    from unmore_tpu_torch.ops.image import crop_and_resize
+
+    # the same seeded weights in f32 (the bf16 model holds them rounded)
+    ref = build_objectness(DptLarge, "float32", device)
+    init_random_variables(ref, seed=0)
+    canvas = torch.from_numpy(images[0]).to(device).float()[None] / 255.0
+    g = torch.Generator().manual_seed(1)
+    xy = torch.rand(8, 2, generator=g) * 160
+    wh = torch.rand(8, 2, generator=g) * 120 + 40
+    boxes = torch.cat([xy, xy + wh], dim=1).to(device)
+    crops = crop_and_resize(canvas, boxes, out_size=128, image_idx=torch.zeros(8, dtype=torch.long, device=device))
+    with torch.inference_mode():
+        want = ref(crops)
+        got = objectness_bf16(crops)
+    sdf_err = float((got["sdf_maps"] - want["sdf_maps"]).abs().max())
+    center_err = float((got["center_fields"] - want["center_fields"]).abs().max())
+    agree = float(((got["sdf_maps"] > 0) == (want["sdf_maps"] > 0)).float().mean())
+    if not all(torch.isfinite(t).all() for t in (*got.values(), *want.values())):
+        fail("non-finite objectness output")
+    emit({"phase": "bf16", "crops": 8, "sdf_max_abs_diff": sdf_err, "center_max_abs_diff": center_err,
+          "sdf_sign_agreement": agree})
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA card only")
+    try:
+        from unmore_tpu_torch.ops import cuda_build
+        from unmore_tpu_torch.ops.decode import fused_center_decode
+    except ImportError as exc:
+        fail(f"the port is not importable from here ({exc}); run from the repository root")
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    # f32 references mean f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    log = cuda_build.build(list(KERNEL_SOURCES))
+    emit({"phase": "build", "nvidia_smi": smi, "build_s": time.perf_counter() - t0,
+          "ptxas": {k: [ln.strip() for ln in v["log"].splitlines() if "Used" in ln or "spill" in ln]
+                    for k, v in log.items()}})
+
+    kernel_rows = phase_kernel(device)
+    counters = {"fused_center_decode": fused_center_decode}
+    objectness, images, launches = phase_main_path(device, counters)
+    phase_bf16(device, objectness, images)
+
+    main_row = kernel_rows[256]
+    emit({"kernels": [{
+        "name": "fused_center_decode", "route": "cuda", "source": KERNEL_SOURCES["decode"],
+        "replaces": replaces_of(KERNEL_SOURCES["decode"]), "launches": launches["fused_center_decode"],
+        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+        "bound_by": main_row["bound_by"], "library_ms": None,
+    }]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,84 @@
+"""ResNet-50 (torchvision v1 layout) and the existence classifier (port of
+``models/resnet.py``).
+
+BN after each conv, stride on the 3x3 conv of each bottleneck, BatchNorm
+from running statistics (the module is used in eval mode). Names follow the
+reference checkpoint: ``classifier_backbone.*`` and
+``binary_classification_head.*``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.downsample = (
+            nn.Sequential(
+                nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
+                nn.BatchNorm2d(planes * 4),
+            )
+            if downsample
+            else None
+        )
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return F.relu(out + x)
+
+
+class ResNet50(nn.Module):
+    def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = nn.BatchNorm2d(64)
+        inplanes, planes = 64, 64
+        for stage, blocks in enumerate(stage_blocks, start=1):
+            layer = nn.Sequential()
+            for b in range(blocks):
+                stride = 2 if (stage > 1 and b == 0) else 1
+                layer.append(Bottleneck(inplanes, planes, stride, downsample=(b == 0)))
+                inplanes = planes * 4
+            setattr(self, f"layer{stage}", layer)
+            planes *= 2
+        self.n_stages = len(stage_blocks)
+        self.fc = nn.Linear(inplanes, 1000)
+
+    def forward(self, x):  # [B, 3, H, W]
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.max_pool2d(out, 3, stride=2, padding=1)
+        for stage in range(1, self.n_stages + 1):
+            out = getattr(self, f"layer{stage}")(out)
+        return self.fc(out.mean(dim=(2, 3)))
+
+
+class BinaryClassifier(nn.Module):
+    """Existence classifier: ResNet-50 -> Linear(1000, 1) -> sigmoid in f32."""
+
+    def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3)):
+        super().__init__()
+        self.stage_blocks = tuple(stage_blocks)
+        self.classifier_backbone = ResNet50(stage_blocks=stage_blocks)
+        self.binary_classification_head = nn.Linear(1000, 1)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        """images [B, H, W, 3] in [0, 1] -> scores [B, 1] f32."""
+        x = images.permute(0, 3, 1, 2).to(self.classifier_backbone.conv1.weight.dtype)
+        logit = self.binary_classification_head(self.classifier_backbone(x))
+        return torch.sigmoid(logit.float())

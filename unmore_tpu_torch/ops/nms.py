@@ -1,0 +1,60 @@
+"""Greedy NMS over a fixed lattice with a validity mask (port of ``ops/nms.py``).
+
+Frontier-confirmation rounds, each decided over the [N, N] threat matrix:
+SUPPRESS every undecided box that a kept box overlaps beyond the threshold;
+KEEP every undecided box whose possible suppressors (earlier rank, overlap
+beyond the threshold) are all suppressed. The top undecided box is always
+decided, so the loop ends, and each decision equals the sequential greedy
+outcome. Ties in score break by input index (stable sort); padding slots
+are never kept and never suppress.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """IoU matrix [N, M] of xyxy boxes."""
+    ax1, ay1, ax2, ay2 = boxes_a[:, 0:1], boxes_a[:, 1:2], boxes_a[:, 2:3], boxes_a[:, 3:4]
+    bx1, by1, bx2, by2 = boxes_b[:, 0], boxes_b[:, 1], boxes_b[:, 2], boxes_b[:, 3]
+    ix1 = torch.maximum(ax1, bx1[None, :])
+    iy1 = torch.maximum(ay1, by1[None, :])
+    ix2 = torch.minimum(ax2, bx2[None, :])
+    iy2 = torch.minimum(ay2, by2[None, :])
+    inter = (ix2 - ix1).clamp(min=0) * (iy2 - iy1).clamp(min=0)
+    area_a = (ax2 - ax1).clamp(min=0) * (ay2 - ay1).clamp(min=0)
+    area_b = (bx2 - bx1).clamp(min=0) * (by2 - by1).clamp(min=0)
+    union = area_a + area_b[None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros((), device=inter.device))
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float = 0.5) -> torch.Tensor:
+    """Greedy NMS; returns a bool keep-mask aligned with the input order.
+
+    boxes [N, 4] xyxy; scores [N]; valid [N] bool.
+    """
+    n = boxes.shape[0]
+    dev = boxes.device
+    key = torch.where(valid, -scores.float(), torch.full((), float("inf"), device=dev))
+    order = torch.argsort(key, stable=True)
+    sorted_boxes = boxes[order].float()
+    sorted_valid = valid[order]
+    rank = torch.arange(n, device=dev)
+    earlier = rank[:, None] < rank[None, :]  # j earlier than i
+    # threat[j, i]: earlier valid box j can suppress i
+    threat = (pairwise_iou(sorted_boxes, sorted_boxes) > iou_threshold) & earlier & sorted_valid[:, None]
+    kept = torch.zeros(n, dtype=torch.bool, device=dev)
+    suppressed = torch.zeros_like(kept)
+    while True:
+        undecided = sorted_valid & ~kept & ~suppressed
+        if not bool(undecided.any()):
+            break
+        by_kept = (threat & kept[:, None]).any(dim=0)
+        live_threat = (threat & ~suppressed[:, None]).any(dim=0)
+        suppressed = suppressed | (undecided & by_kept)
+        kept = kept | (undecided & ~by_kept & ~live_threat)
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    out[order] = kept
+    return out
