@@ -9,16 +9,21 @@ each printing one JSON line:
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
    nvcc took to build every kernel of the main path from ``unmore_tpu_torch/csrc``;
 2. kernel: ``fused_center_decode`` against its plain PyTorch version on the
-   card at the main path's shapes [256,128,128] and [32,128,128] (union
-   exact, scores to atol 2e-5, argmax equal where the score is > 1e-4),
-   with the kernel's and the plain version's times and the bound;
+   card at the main path's shapes [256,128,128] and [32,128,128] and on a
+   dense [256,128,128] input where every crop scores (union exact, scores
+   to atol 2e-5, argmax equal where the score is > 1e-4), with the bound,
+   the plain version's time and two times of the kernel: ``ms`` from events
+   around back-to-back wrapper calls (host work included) and
+   ``device_ms``, its launches' own device time from ``torch.profiler``;
 3. main_path: ``ObjectDiscoveryEngine.discover_batch`` on two seeded uint8
    images with DPT-Large (ViT-L/16, features 256, tanh bg-sdf) and the full
    ResNet-50 classifier, seeded random weights, bf16 (a smaller canvas and
    lattices, and thresholds set for random weights); launch counts are
    zeroed just before and read just after, and every kernel of the path
    must have launched; a run with the plain decode, made first, must give
-   the same results; model FLOPs are counted per crop and per phase;
+   the same results; model FLOPs are counted per crop and per phase. The
+   path's first center chunk is kept, and after the run the kernel is held
+   against its plain version and timed on it, as in phase 2;
 4. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
@@ -62,6 +67,8 @@ def fail(msg: str):
 
 
 def time_ms(fn, iters=20, warmup=3):
+    """Milliseconds per call, from events around back-to-back calls: the
+    host's work in the call counts where it is longer than the device's."""
     import torch
 
     for _ in range(warmup):
@@ -73,6 +80,28 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """The kernels' own time per call: every CUDA kernel that ``iters``
+    calls launched, summed from ``torch.profiler``'s ``key_averages()``.
+    Returns (ms per call, {kernel name: ms per call})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {evt.key[:80]: evt.self_device_time_total / 1e3 / iters
+                 for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA}
+    if not sum(by_kernel.values()) > 0:
+        fail("torch.profiler recorded no device time for the kernel")
+    return sum(by_kernel.values()), by_kernel
 
 
 def replaces_of(source: str) -> str:
@@ -102,6 +131,17 @@ def decode_inputs(B, S, seed, device):
     return sdf.contiguous(), center.contiguous()
 
 
+def dense_decode_inputs(B, S, seed, device):
+    """Every crop all foreground: the eroded interior, and so the scored
+    region, is as large as it can be."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    sdf = 1.0 + torch.randn(B, S, S, generator=g, device=device).abs()
+    center = torch.randn(B, S, S, 2, generator=g, device=device) * 0.3
+    return sdf, center
+
+
 def decode_bound_ms(B, S, union, border=10, erode_k=9, erode_rounds=3, anti_k=5):
     """Least time for the decode on an H100: the larger of the bytes it must
     move (inputs read once, outputs written once) over HBM bandwidth and its
@@ -118,35 +158,46 @@ def decode_bound_ms(B, S, union, border=10, erode_k=9, erode_rounds=3, anti_k=5)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes
 
 
-def phase_kernel(device):
+def decode_row(name, sdf, center, require_scored=True):
+    """Hold the kernel against its plain version on one input (union exact,
+    scores to atol 2e-5, argmax equal where the score is > 1e-4) and time
+    both beside the bound."""
     import torch
 
     from unmore_tpu_torch.ops.decode import fused_center_decode
     from unmore_tpu_torch.ops.fields import center_singularity_scores
 
-    rows = {}
-    for B in (256, 32):
-        sdf, center = decode_inputs(B, 128, B, device)
-        got = fused_center_decode(sdf, center)
-        want = center_singularity_scores(sdf, center)
-        torch.cuda.synchronize()
-        if not torch.equal(got[2], want[2]):
-            fail(f"decode kernel union differs from the plain version at B={B}")
-        err = float((got[0] - want[0]).abs().max())
-        if not err <= 2e-5:
-            fail(f"decode kernel scores differ by {err} at B={B} (atol 2e-5)")
-        pos = want[0] > 1e-4
-        if int(pos.sum()) == 0:
-            fail(f"no crop gave a meaningful score at B={B}: the check would be empty")
-        if not torch.equal(got[1][pos], want[1][pos]):
-            fail(f"decode kernel argmax differs from the plain version at B={B}")
-        bound_ms, bound_by, n_bytes = decode_bound_ms(B, 128, want[2])
-        rows[B] = {
-            "shape": [B, 128, 128], "max_abs_err": err, "n_scored_crops": int(pos.sum()),
-            "ms": time_ms(lambda: fused_center_decode(sdf, center)),
-            "plain_ms": time_ms(lambda: center_singularity_scores(sdf, center)),
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
-        }
+    got = fused_center_decode(sdf, center)
+    want = center_singularity_scores(sdf, center)
+    torch.cuda.synchronize()
+    if not torch.equal(got[2], want[2]):
+        fail(f"decode kernel union differs from the plain version on {name}")
+    err = float((got[0] - want[0]).abs().max())
+    if not err <= 2e-5:
+        fail(f"decode kernel scores differ by {err} on {name} (atol 2e-5)")
+    pos = want[0] > 1e-4
+    if require_scored and int(pos.sum()) == 0:
+        fail(f"no crop gave a meaningful score on {name}: the check would be empty")
+    if not torch.equal(got[1][pos], want[1][pos]):
+        fail(f"decode kernel argmax differs from the plain version on {name}")
+    B, S, _ = sdf.shape
+    bound_ms, bound_by, n_bytes = decode_bound_ms(B, S, want[2])
+    dev_ms, by_kernel = device_ms(lambda: fused_center_decode(sdf, center))
+    return {
+        "input": name, "shape": [B, S, S], "max_abs_err": err, "n_scored_crops": int(pos.sum()),
+        "ms": time_ms(lambda: fused_center_decode(sdf, center)), "device_ms": dev_ms,
+        "device_ms_by_kernel": by_kernel,
+        "plain_ms": time_ms(lambda: center_singularity_scores(sdf, center)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+    }
+
+
+def phase_kernel(device):
+    rows = {
+        "random_256": decode_row("random_256", *decode_inputs(256, 128, 256, device)),
+        "random_32": decode_row("random_32", *decode_inputs(32, 128, 32, device)),
+        "dense_256": decode_row("dense_256", *dense_decode_inputs(256, 128, 7, device)),
+    }
     emit({"phase": "kernel", "name": "fused_center_decode", "tolerance": {"scores_atol": 2e-5},
           "results": list(rows.values())})
     return rows
@@ -256,6 +307,14 @@ def phase_main_path(device, kernel_counters):
     plain_wall = time.perf_counter() - t0
 
     engine = ObjectDiscoveryEngine(*fns, cfg, device=device)
+    first_chunk = []  # the main path's first center chunk, timed on its own below
+
+    def capture(sdf, center, decode=engine._decode):
+        if not first_chunk:
+            first_chunk.extend((sdf.clone(), center.clone()))
+        return decode(sdf, center)
+
+    engine._decode = capture
     torch.cuda.reset_peak_memory_stats()
     for counted in kernel_counters.values():
         counted.launches = 0
@@ -307,7 +366,10 @@ def phase_main_path(device, kernel_counters):
         "kernel_launches": launches, "max_memory_allocated_bytes": peak,
         "stats": [r["stats"] for r in results], "n_boxes": [len(r["boxes"]) for r in results],
     })
-    return objectness, images, launches
+    # outside the counted run: the kernel against its plain version on that chunk
+    chunk_row = decode_row("main_path_chunk", *first_chunk, require_scored=False)
+    emit({"phase": "kernel_main_path_chunk", "name": "fused_center_decode", "result": chunk_row})
+    return objectness, images, launches, chunk_row
 
 
 # ------------------------------------------------------------------ phase 4
@@ -368,16 +430,17 @@ def main():
 
     kernel_rows = phase_kernel(device)
     counters = {"fused_center_decode": fused_center_decode}
-    objectness, images, launches = phase_main_path(device, counters)
+    objectness, images, launches, chunk_row = phase_main_path(device, counters)
     phase_bf16(device, objectness, images)
 
-    main_row = kernel_rows[256]
+    main_row = kernel_rows["random_256"]
     emit({"kernels": [{
         "name": "fused_center_decode", "route": "cuda", "source": KERNEL_SOURCES["decode"],
         "replaces": replaces_of(KERNEL_SOURCES["decode"]), "launches": launches["fused_center_decode"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows.values()),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"], "library_ms": None,
+        "max_abs_err": max(r["max_abs_err"] for r in (*kernel_rows.values(), chunk_row)),
+        "ms": main_row["ms"], "device_ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
+        "main_path_chunk": {k: chunk_row[k] for k in ("shape", "ms", "device_ms", "bound_ms")},
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

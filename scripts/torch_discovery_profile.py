@@ -33,7 +33,7 @@ import chip_smoke  # noqa: E402
 
 # first matching pattern names a kernel's category
 CATEGORIES = (
-    ("decode_kernel", r"decode_kernel"),
+    ("decode_kernel", r"union_pack|erode_score|decode_keys"),
     ("layout_transpose", r"nchwToNhwc|nhwcToNchw"),
     ("convolution", r"fprop|dgrad|conv|implicit_gemm|cudnn"),
     ("gemm", r"gemm|nvjet|cutlass|xmma"),
