@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in four phases,
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in five phases,
 each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
-   nvcc took to build every kernel of the main path from ``unmore_tpu_torch/csrc``;
+   nvcc took to build every kernel of the main path from ``unmore_tpu_torch/csrc``
+   (and g++ the scoring's host library ``csrc/paste.cpp``, in parallel);
 2. kernel: ``fused_center_decode`` against its plain PyTorch version on the
    card at the main path's shapes [256,128,128] and [32,128,128] and on a
    dense [256,128,128] input where every crop scores (union exact, scores
@@ -24,7 +25,15 @@ each printing one JSON line:
    the same results; model FLOPs are counted per crop and per phase. The
    path's first center chunk is kept, and after the run the kernel is held
    against its plain version and timed on it, as in phase 2;
-4. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops.
+4. scoring: ``ObjectScoringEngine.score_batch`` at the ``ScoringConfig``
+   defaults with phase 3's models on four seeded uint8 images (phase 3's two
+   and 480x640, 640x427) with 64 boxes each, phase 3's discovered boxes
+   topped up with seeded random ones: a 256-slot lattice in two model
+   chunks. Checks: the host library's tight boxes, areas and RLEs equal its
+   plain version on the same union masks; the batched call equals four
+   ``score_image`` calls; ``post_process.py`` takes the annotation JSON.
+   Timings, crops per second, model FLOPs and MFU, peak memory;
+5. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -33,6 +42,7 @@ line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -43,6 +53,8 @@ from pathlib import Path
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 KERNEL_SOURCES = {"decode": "unmore_tpu_torch/csrc/decode.cu"}
+HOST_SOURCES = {"paste": "unmore_tpu_torch/csrc/paste.cpp"}  # host code of the scoring phase, not a kernel
+H100_BF16_FLOPS = 989e12  # dense bf16, H100 SXM data sheet
 
 
 class DptLarge:
@@ -204,14 +216,14 @@ def phase_kernel(device):
 
 
 # ------------------------------------------------------------------ phase 3
-def synthetic_images(seed):
-    """Two uint8 scenes: a few flat-coloured rectangles and discs on a
-    noisy background."""
+def synthetic_images(seed, sizes=((320, 320), (240, 300))):
+    """uint8 scenes of the given sizes: a few flat-coloured rectangles and
+    discs on a noisy background."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     images = []
-    for h, w in ((320, 320), (240, 300)):
+    for h, w in sizes:
         img = (rng.rand(h, w, 3) * 40 + 100).astype(np.float32)
         yy, xx = np.mgrid[:h, :w]
         for _ in range(5):
@@ -369,10 +381,171 @@ def phase_main_path(device, kernel_counters):
     # outside the counted run: the kernel against its plain version on that chunk
     chunk_row = decode_row("main_path_chunk", *first_chunk, require_scored=False)
     emit({"phase": "kernel_main_path_chunk", "name": "fused_center_decode", "result": chunk_row})
-    return objectness, images, launches, chunk_row
+    return {"objectness": objectness, "fns": fns, "images": images, "results": results, "launches": launches,
+            "chunk_row": chunk_row, "gflop_per_crop": {"both_heads": both / 1e9, "classifier": cls / 1e9}}
 
 
 # ------------------------------------------------------------------ phase 4
+SCORING_BOXES_PER_IMAGE = 64
+
+
+def scoring_inputs(discovered, seed=1):
+    """Phase 3's two images and two more (480x640, 640x427), each with 64
+    boxes: the discovered ones first, topped up with seeded random boxes
+    inside the image."""
+    import numpy as np
+
+    images = synthetic_images(seed=0) + synthetic_images(seed, sizes=((480, 640), (640, 427)))
+    rng = np.random.RandomState(seed)
+    boxes = []
+    for g, img in enumerate(images):
+        h, w = img.shape[:2]
+        found = discovered[g]["boxes"] if g < len(discovered) else []
+        found = np.asarray(found, np.float32).reshape(-1, 4)[:SCORING_BOXES_PER_IMAGE]
+        n = SCORING_BOXES_PER_IMAGE - len(found)
+        wh = rng.uniform([16, 16], [0.6 * w, 0.6 * h], (n, 2))
+        xy = rng.uniform(0, 1, (n, 2)) * (np.array([w, h]) - wh)
+        boxes.append(np.concatenate([found, np.concatenate([xy, xy + wh], 1).astype(np.float32)]))
+    return images, boxes
+
+
+def check_pastes(calls):
+    """Every recorded paste of the host library against its plain version:
+    (tight boxes and areas, RLEs) exact. Returns the number of mismatches."""
+    import numpy as np
+
+    from unmore_tpu_torch.ops.paste import paste_rle_plain, paste_stats_plain
+
+    bad = 0
+    for kind, args, got in calls:
+        if kind == "stats":
+            want = paste_stats_plain(*args)
+            bad += int(not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])))
+        else:
+            bad += int(got != paste_rle_plain(*args))
+    return bad
+
+
+def compare_annotations(batched, single):
+    """(largest score difference relative to the score, list of mismatches
+    in counts, tight boxes or segmentations, scores beyond rtol 1e-3)."""
+    diffs, problems = [0.0], []
+    for g, (a, b) in enumerate(zip(batched, single)):
+        if len(a) != len(b):
+            problems.append(f"image {g}: {len(a)} annotations batched, {len(b)} alone")
+            continue
+        for x, y in zip(a, b):
+            if x["bbox"] != y["bbox"] or x["segmentation"] != y["segmentation"]:
+                problems.append(f"image {g}: tight box or segmentation differs")
+            for key in ("score", "existence_score", "center_score", "boundary_score", "area_score"):
+                d = abs(x[key] - y[key])
+                diffs.append(d / max(abs(y[key]), 1e-30) if d else 0.0)
+                if d > 1e-3 * abs(y[key]):
+                    problems.append(f"image {g}: {key} {x[key]} batched, {y[key]} alone")
+    return max(diffs), problems
+
+
+def run_post_process(anns, images):
+    """``post_process.py`` on the annotation JSON in a subprocess, with
+    thresholds that keep every annotation: it must exit 0 and keep them all."""
+    from unmore_tpu_torch.cli.common import NpEncoder
+
+    folder = Path("build") / "smoke_scoring"
+    folder.mkdir(parents=True, exist_ok=True)
+    pred, gt = folder / "object_discovery_with_scores.json", folder / "instances.json"
+    pred.write_text(json.dumps(anns, cls=NpEncoder))
+    gt.write_text(json.dumps({"images": [{"id": g + 1, "file_name": f"{g}.png", "height": int(im.shape[0]),
+                                          "width": int(im.shape[1])} for g, im in enumerate(images)]}))
+    out = subprocess.run(
+        [sys.executable, "post_process.py", "--pred_annotations_path", str(pred), "--gt_annotation_path", str(gt),
+         "--existence_score_thres", "-1", "--center_score_thres", "-1", "--boundary_score_thres", "-2"],
+        capture_output=True, text=True, timeout=120,
+    )
+    if out.returncode != 0:
+        return f"post_process.py exited {out.returncode}: {out.stderr[-500:]}"
+    kept = json.loads((folder / "selected_training_annotations.json").read_text())["annotations"]
+    return None if len(kept) == len(anns) else f"post_process.py kept {len(kept)} of {len(anns)}"
+
+
+def phase_scoring(device, main_path):
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.reasoning import scoring
+    from unmore_tpu_torch.reasoning.scoring import ObjectScoringEngine, ScoringConfig
+
+    images, boxes = scoring_inputs(main_path["results"])
+    ids = list(range(1, len(images) + 1))
+    cfg = ScoringConfig()
+    engine = ObjectScoringEngine(*main_path["fns"], cfg, device=device)
+
+    # first call: warms the chunk-128 shapes up and records every call of the
+    # host library, which is checked against its plain version afterwards
+    calls = []
+    real_stats, real_rle = scoring.paste_stats, scoring.paste_rle
+
+    def stats(masks, bx, h, w):
+        out = real_stats(masks, bx, h, w)
+        calls.append(("stats", (masks.copy(), bx.copy(), h, w), out))
+        return out
+
+    def rle(mask, box, h, w):
+        out = real_rle(mask, box, h, w)
+        calls.append(("rle", (mask.copy(), np.array(box), h, w), out))
+        return out
+
+    scoring.paste_stats, scoring.paste_rle = stats, rle
+    try:
+        t0 = time.perf_counter()
+        first = engine.score_batch(images, boxes, ids)
+        first_wall = time.perf_counter() - t0
+    finally:
+        scoring.paste_stats, scoring.paste_rle = real_stats, real_rle
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    batched = engine.score_batch(images, boxes, ids)
+    wall = time.perf_counter() - t0
+    timings = dict(engine.last_timings)
+    peak = torch.cuda.max_memory_allocated()
+    single = [engine.score_image(im, bx, i) for im, bx, i in zip(images, boxes, ids)]
+
+    problems = []
+    n_paste_bad = check_pastes(calls)
+    if n_paste_bad:
+        problems.append(f"{n_paste_bad} of {len(calls)} host-library pastes differ from the plain version")
+    max_rel, mismatch = compare_annotations(batched, single)
+    problems += mismatch
+    anns = [a for per_image in batched for a in per_image]
+    for a in anns:
+        if not all(np.isfinite(a[k]) for k in ("score", "existence_score", "center_score", "boundary_score")):
+            problems.append("non-finite score")
+            break
+    pp = run_post_process(anns, images)
+    if pp:
+        problems.append(pp)
+
+    n_crops = -(-sum(len(b) for b in boxes) // cfg.slot_multiple) * cfg.slot_multiple
+    gflop = main_path["gflop_per_crop"]
+    flops = n_crops * (gflop["both_heads"] + gflop["classifier"]) * 1e9
+    emit({
+        "phase": "scoring", "config": dataclasses.asdict(cfg),
+        "images": [list(im.shape[:2]) for im in images], "boxes_per_image": [len(b) for b in boxes],
+        "lattice_slots": n_crops, "annotations_per_image": [len(a) for a in batched],
+        "device_s": timings["device_s"], "host_s": timings["host_s"], "wall_s": wall, "first_call_wall_s": first_wall,
+        "crops_per_s": n_crops / wall, "crops_per_device_s": n_crops / timings["device_s"],
+        "gflop_per_crop": gflop, "model_tflop": flops / 1e12,
+        "mfu_vs_989_tflops_bf16_device_s": flops / timings["device_s"] / H100_BF16_FLOPS,
+        "max_memory_allocated_bytes": peak, "pastes_checked": len(calls),
+        "max_rel_score_diff_batched_vs_single": max_rel, "repeat_call_equal": first == batched,
+        "checks_failed": problems,
+    })
+    if problems:
+        fail(f"scoring phase: {problems[:5]}")
+
+
+# ------------------------------------------------------------------ phase 5
 def phase_bf16(device, objectness_bf16, images):
     import torch
 
@@ -423,15 +596,17 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    log = cuda_build.build(list(KERNEL_SOURCES))
+    log = cuda_build.build([*KERNEL_SOURCES, *HOST_SOURCES])
     emit({"phase": "build", "nvidia_smi": smi, "build_s": time.perf_counter() - t0,
           "ptxas": {k: [ln.strip() for ln in v["log"].splitlines() if "Used" in ln or "spill" in ln]
                     for k, v in log.items()}})
 
     kernel_rows = phase_kernel(device)
     counters = {"fused_center_decode": fused_center_decode}
-    objectness, images, launches, chunk_row = phase_main_path(device, counters)
-    phase_bf16(device, objectness, images)
+    main_path = phase_main_path(device, counters)
+    launches, chunk_row = main_path["launches"], main_path["chunk_row"]
+    phase_scoring(device, main_path)
+    phase_bf16(device, main_path["objectness"], main_path["images"])
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{

@@ -87,7 +87,8 @@ def test_help_names_the_ignored_flags(capsys):
     for flag in ("--pallas_decode", "--boundary_segment", "--vit_pack", "--devices", "--gpu_index",
                  "--max_restarts", "--hang_timeout_min", "--busy_hang_timeout_min"):
         assert flag in text
-    assert text.count("ignored by this build") >= 8
+    # the six flags of the TPU build; --max_restarts and --hang_timeout_min supervise the run
+    assert text.count("ignored by this build") >= 6
 
 
 def test_partial_plumbing_matches_the_jax_package(tmp_path):

@@ -1,9 +1,10 @@
 """The port stands alone: no JAX, no flax, nothing of the JAX package.
 
 Every module of ``unmore_tpu_torch`` imports in a fresh interpreter where
-``jax``, ``flax`` and ``unmore_tpu`` cannot be imported; no Python source of
-the port, nor ``chip_smoke.py``, names the JAX package; and the entry points
-refuse to pick the CPU on their own when no card is present.
+``jax``, ``flax``, ``msgpack`` and ``unmore_tpu`` cannot be imported; no
+Python source of the port, nor its host library ``csrc/paste.cpp``, nor
+``chip_smoke.py``, names the JAX package; and the entry points refuse to
+pick the CPU on their own when no card is present.
 """
 
 import re
@@ -19,12 +20,12 @@ PORT = ROOT / "unmore_tpu_torch"
 
 IMPORT_ALL = """
 import importlib, pkgutil, sys
-sys.modules["jax"] = sys.modules["flax"] = sys.modules["unmore_tpu"] = None
+sys.modules["jax"] = sys.modules["flax"] = sys.modules["msgpack"] = sys.modules["unmore_tpu"] = None
 import unmore_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(unmore_tpu_torch.__path__, "unmore_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "unmore_tpu") and sys.modules[m] is not None]
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "msgpack", "unmore_tpu") and sys.modules[m] is not None]
 assert not bad, bad
 print(len(names))
 """
@@ -40,21 +41,24 @@ def test_every_module_imports_without_jax():
 
 def test_sources_never_name_the_jax_package():
     pattern = re.compile(r"\bunmore_tpu\b(?!_torch)|^\s*(import|from)\s+(jax|flax)\b", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [PORT / "csrc" / "paste.cpp", ROOT / "chip_smoke.py"]
     assert len(files) > 15
     hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in files for m in pattern.finditer(p.read_text())]
     assert not hits, hits
 
 
-@pytest.mark.parametrize("entry", ["engine", "build_objectness", "build_classifier", "resolve_device"])
+@pytest.mark.parametrize("entry", ["engine", "scoring_engine", "build_objectness", "build_classifier",
+                                   "resolve_device"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     from unmore_tpu_torch import resolve_device
     from unmore_tpu_torch.cli.common import build_classifier, build_objectness
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
+    from unmore_tpu_torch.reasoning.scoring import ObjectScoringEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
         "engine": lambda: ObjectDiscoveryEngine(lambda c, cc=True: None, lambda c: None, ReasoningConfig()),
+        "scoring_engine": lambda: ObjectScoringEngine(lambda c, cc=True: None, lambda c: None),
         "build_objectness": lambda: build_objectness(None),
         "build_classifier": lambda: build_classifier(),
         "resolve_device": lambda: resolve_device(None),
@@ -64,10 +68,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_cli_refuses_to_fall_back_to_the_cpu(tmp_path, monkeypatch):
-    from unmore_tpu_torch.cli import object_reasoning
+@pytest.mark.parametrize("cli", ["object_reasoning", "object_scoring"])
+def test_cli_refuses_to_fall_back_to_the_cpu(cli, tmp_path, monkeypatch):
+    import importlib
 
+    module = importlib.import_module(f"unmore_tpu_torch.cli.{cli}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        object_reasoning.main(["--coco_image_dir", str(tmp_path), "--coco_annotations", "none.json"])
+        extra = ["--raw_annotations_path", "discovery_results.json"] if cli == "object_scoring" else []
+        module.main(["--coco_image_dir", str(tmp_path), "--coco_annotations", "none.json", *extra])

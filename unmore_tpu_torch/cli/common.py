@@ -1,9 +1,17 @@
 """Shared CLI plumbing: model construction, weights, partial results.
 
-Weights load from a reference PyTorch ``.ckpt`` (``{'model_state_dict':
-...}``) or from a plain state_dict saved by this package; both use the
-reference checkpoint's parameter names. Without a checkpoint,
-:func:`init_random_variables` fills the models from a seeded generator.
+Weights load from any of three formats, told apart by trying the msgpack
+parse first:
+
+* a msgpack checkpoint written by the JAX trainers (flax
+  ``msgpack_serialize`` of the trainer state), read by
+  :mod:`unmore_tpu_torch.train.checkpoints` and carried across by
+  ``*_state_dict_from_flax``;
+* a reference PyTorch ``.ckpt`` (``{'model_state_dict': ...}``);
+* a plain state_dict saved by this package.
+
+Without a checkpoint, :func:`init_random_variables` fills the models from a
+seeded generator.
 """
 
 from __future__ import annotations
@@ -19,9 +27,13 @@ import numpy as np
 import torch
 
 from unmore_tpu_torch import resolve_device
-from unmore_tpu_torch.models.convert import load_objectness_state_dict, load_torch_checkpoint
+from unmore_tpu_torch.models.convert import (
+    classifier_state_dict_from_flax, load_objectness_state_dict, load_torch_checkpoint,
+    objectness_state_dict_from_flax,
+)
 from unmore_tpu_torch.models.objectness import ObjectnessNet
 from unmore_tpu_torch.models.resnet import BinaryClassifier
+from unmore_tpu_torch.train.checkpoints import try_msgpack_checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,11 +53,28 @@ def build_classifier(dtype="bfloat16", device=None) -> BinaryClassifier:
 
 
 def load_objectness_weights(model: ObjectnessNet, path: str):
-    load_objectness_state_dict(model, load_torch_checkpoint(path))
+    """A JAX msgpack checkpoint (its ``params``, or the whole tree when it
+    is a bare param tree) or a torch checkpoint, into ``model``."""
+    ckpt = try_msgpack_checkpoint(path)
+    if ckpt is None:
+        sd = load_torch_checkpoint(path)
+    else:
+        params = ckpt["params"] if "params" in ckpt else ckpt
+        sd = objectness_state_dict_from_flax(params, model.sdf_activation, model.use_bg_sdf)
+    load_objectness_state_dict(model, sd)
 
 
 def load_classifier_weights(model: BinaryClassifier, path: str):
-    model.load_state_dict(load_torch_checkpoint(path), strict=True)
+    """A JAX msgpack checkpoint (its ``params`` and ``batch_stats``) or a
+    torch checkpoint, into ``model``."""
+    ckpt = try_msgpack_checkpoint(path)
+    if ckpt is None:
+        sd = load_torch_checkpoint(path)
+    else:
+        if "params" in ckpt and "batch_stats" in ckpt:
+            ckpt = {"params": ckpt["params"], "batch_stats": ckpt["batch_stats"]}
+        sd = classifier_state_dict_from_flax(ckpt)
+    model.load_state_dict(sd, strict=True)
 
 
 @torch.no_grad()

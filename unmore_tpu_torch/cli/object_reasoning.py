@@ -2,15 +2,19 @@
 
     python -m unmore_tpu_torch.cli.object_reasoning --coco_image_dir DIR \\
         --coco_annotations instances.json --sdf_activation tanh --use_bg_sdf \\
-        --objectness_resume objectness.ckpt --binary_classifier_resume classifier.ckpt
+        --objectness_resume objectness.ckpt --binary_classifier_resume classifier.ckpt \\
+        [--max_restarts 3]
 
 Same flags and files as the JAX package's ``object_reasoning.py``:
 ``results_reasoning/<run_name>/configs_object_reasoning.json``, a
 per-group ``partial_results_p0.jsonl`` stamped with an input fingerprint
 (a rerun skips the images it holds), ``discovery_results.json`` (image_id
--> [N, 4] xyxy boxes) and ``stage_timings.json``. Without a checkpoint the
-model gets seeded random weights. Flags of the TPU build that have no
-meaning here are accepted and ignored (see ``--help``).
+-> [N, 4] xyxy boxes) and ``stage_timings.json``. Checkpoints are the JAX
+trainers' msgpack files or torch ``.ckpt`` / state_dict files; without one
+the model gets seeded random weights. ``--max_restarts N`` runs the CLI as
+a supervised child that is relaunched after a crash or a hang and resumes
+from the partial file (``cli/supervisor.py``). Flags of the TPU build that
+have no meaning here are accepted and ignored (see ``--help``).
 """
 
 from __future__ import annotations
@@ -19,9 +23,12 @@ import argparse
 import datetime
 import json
 import os
+import sys
 import time
 
 import numpy as np
+
+from unmore_tpu_torch.cli import supervisor
 
 IGNORED = "accepted for compatibility and ignored by this build"
 
@@ -72,14 +79,25 @@ def parse_args(argv=None):
     p.add_argument("--boundary_segment", type=int, default=0, help=IGNORED)
     p.add_argument("--vit_pack", type=int, default=1, help=IGNORED)
     p.add_argument("--devices", type=int, default=-1, help=IGNORED + " (one device)")
-    p.add_argument("--max_restarts", type=int, default=0, help=IGNORED + " (no supervisor yet)")
-    p.add_argument("--hang_timeout_min", type=float, default=30.0, help=IGNORED)
-    p.add_argument("--busy_hang_timeout_min", type=float, default=15.0, help=IGNORED)
+    supervisor.add_flags(p, IGNORED)
     return p.parse_args(argv)
+
+
+def default_run_name(args) -> str:
+    return datetime.datetime.now().strftime("%y%m%d_%H%M%S") + "_" + args.dataset + "_" + args.dataset_split
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.max_restarts > 0:
+        # pin the run name, so that every restart finds the partial file
+        # in one result folder instead of starting a new timestamped one
+        if args.run_name is None:
+            args.run_name = default_run_name(args)
+        raw = list(argv) if argv is not None else sys.argv[1:]
+        raw = supervisor.strip_flag(raw, "--run_name", True) + ["--run_name", args.run_name]
+        sys.exit(supervisor.run_supervised(__spec__.name, raw, args.max_restarts, args.hang_timeout_min))
+
     import torch
 
     from unmore_tpu_torch import resolve_device
@@ -97,9 +115,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     if args.run_name is None:
-        args.run_name = (
-            datetime.datetime.now().strftime("%y%m%d_%H%M%S") + "_" + args.dataset + "_" + args.dataset_split
-        )
+        args.run_name = default_run_name(args)
     if args.start_idx != -1 and args.end_idx != -1:
         args.run_name += f"_{args.start_idx}_{args.end_idx}"
     result_folder = os.path.join("results_reasoning", args.run_name)

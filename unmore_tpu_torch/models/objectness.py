@@ -59,6 +59,7 @@ class ObjectnessNet(nn.Module):
                  use_bg_sdf: bool = True, features: int = 256, vit_config=None, hooks=None,
                  widths=None):
         super().__init__()
+        self.sdf_activation, self.use_bg_sdf = sdf_activation, use_bg_sdf  # the SDF head's layout
         if backbone_type not in BACKBONE_ALIASES:
             raise ValueError(
                 f"backbone_type {backbone_type!r} is not ported; choose one of {sorted(BACKBONE_ALIASES)}"

@@ -1,10 +1,12 @@
-"""Build and load the hand-written CUDA kernels of ``unmore_tpu_torch/csrc``.
+"""Build and load the native sources of ``unmore_tpu_torch/csrc``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/`` at
-the root of the checkout, at first use, then loaded with ``ctypes``. The
-library's file name carries a hash of the source, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import.
+Each source exposes a plain C interface and is compiled into a shared
+library under ``build/kernels/`` at the root of the checkout, at first use,
+then loaded with ``ctypes``: a CUDA kernel ``csrc/<name>.cu`` by ``nvcc``
+for ``sm_90a``, host code ``csrc/<name>.cpp`` by ``g++``. The library's
+file name carries a hash of the source, so an edited source is rebuilt and
+a stale library is never loaded. A failed build raises. Nothing here runs
+at import.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds and ptxas report of each build done by this process, by kernel name
@@ -36,20 +39,40 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host library csrc/*.cpp builds only where g++ is installed")
+    return gxx
+
+
+def source_path(name: str) -> Path:
+    """``csrc/<name>.cu`` (a CUDA kernel) or ``csrc/<name>.cpp`` (host code)."""
+    for suffix in (".cu", ".cpp"):
+        src = CSRC / f"{name}{suffix}"
+        if src.exists():
+            return src
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha1(source_path(name).read_bytes()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def _start_build(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns the
-    process (or None), the temporary output and the final path."""
+    """Start the compiler for ``name`` unless its library exists; returns
+    the process (or None), the temporary output and the final path."""
     out = library_path(name)
     if out.exists():
         return None, None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = source_path(name)
+    if src.suffix == ".cu":
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    else:
+        cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
@@ -59,14 +82,14 @@ def _finish_build(name: str, proc, tmp: Path, out: Path, t0: float):
         return
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        raise RuntimeError(f"{Path(proc.args[0]).name} failed for csrc/{source_path(name).name}:\n{log}")
     os.replace(tmp, out)
     build_log[name] = {"seconds": time.perf_counter() - t0, "log": log}
 
 
 def build(names) -> dict[str, dict]:
-    """Compile every named kernel that is not built yet, one nvcc process
-    per source, all started together. Returns :data:`build_log`."""
+    """Compile every named source that is not built yet, one compiler
+    process per source, all started together. Returns :data:`build_log`."""
     t0 = time.perf_counter()
     started = [(n, *_start_build(n)) for n in names]
     for n, proc, tmp, out in started:
@@ -75,7 +98,7 @@ def build(names) -> dict[str, dict]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Build (if needed) and load ``csrc/<name>.cu`` or ``.cpp``; cached per process."""
     if name not in _loaded:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))

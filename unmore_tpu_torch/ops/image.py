@@ -144,3 +144,25 @@ def crop_and_resize(
         c1 = c1 + (image[b, y1, x1].float() - c1) * wy
         out[s:e] = c0 + (c1 - c0) * fx[s:e, None, :, None]
     return out
+
+
+def paste_mask_into_canvas(mask: np.ndarray, box: np.ndarray, canvas_hw: tuple[int, int]) -> np.ndarray:
+    """Host-side paste-back of a crop-space mask into a full-image canvas.
+
+    The [s, s] float mask is bilinearly resized (half-pixel taps) to the
+    integer box extent and written at (y1:y2, x1:x2); everything outside
+    stays zero. The plain version of the host library ``csrc/paste.cpp``.
+    """
+    Hc, Wc = canvas_hw
+    x1, y1 = int(np.floor(box[0])), int(np.floor(box[1]))
+    x2, y2 = int(np.ceil(box[2])), int(np.ceil(box[3]))
+    x1, y1 = max(x1, 0), max(y1, 0)
+    x2, y2 = min(x2, Wc), min(y2, Hc)
+    canvas = np.zeros((Hc, Wc), dtype=np.float32)
+    bh, bw = y2 - y1, x2 - x1
+    if bh <= 0 or bw <= 0:
+        return canvas
+    wy = _bilinear_weight_matrix(mask.shape[0], bh, align_corners=False)
+    wx = _bilinear_weight_matrix(mask.shape[1], bw, align_corners=False)
+    canvas[y1:y2, x1:x2] = wy @ mask.astype(np.float32) @ wx.T
+    return canvas
