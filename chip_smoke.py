@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in five phases,
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in six phases,
 each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
    nvcc took to build every kernel of the main path from ``unmore_tpu_torch/csrc``
-   (and g++ the scoring's host library ``csrc/paste.cpp``, in parallel);
+   (and g++ the host libraries ``csrc/paste.cpp`` and ``csrc/labels.cpp``, in
+   parallel);
 2. kernel: ``fused_center_decode`` against its plain PyTorch version on the
    card at the main path's shapes [256,128,128] and [32,128,128] and on a
    dense [256,128,128] input where every crop scores (union exact, scores
@@ -33,7 +34,21 @@ each printing one JSON line:
    plain version on the same union masks; the batched call equals four
    ``score_image`` calls; ``post_process.py`` takes the annotation JSON.
    Timings, crops per second, model FLOPs and MFU, peak memory;
-5. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops.
+5. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops;
+6. train: stage 1 at the ``script.sh`` recipe (batch 20 at 128^2, bf16
+   autocast over f32 weights, Adam 1e-4 on milestones 10000/20000). A seeded
+   synthetic VoteCut world made in process goes through ``synthesize_labels``
+   / ``classifier_sample``, ``batch_iterator`` and the prefetch threads into
+   30 steps of the DPT-Large objectness trainer and 30 of the ResNet-50
+   existence classifier: synchronised step ms (median of steps 11-30),
+   img/s, fwd+bwd FLOPs (``FlopCounterMode``), MFU, peak memory, loss trace,
+   ``starved_fraction``. Checks: a NaN batch is skipped with parameters and
+   optimizer state unchanged; the loss of a fresh trainer falls on a fixed
+   batch (at 1/10 of the rate, past Adam's first-step transient); the classifier
+   evaluates; one f32 step of a narrow model on the card against the CPU;
+   each trainer's checkpoint through the async writer reads back leaf for
+   leaf, and loads through ``cli/common.py`` into the stage-2 engine, which
+   runs one discovery image group on the trained weights.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -53,7 +68,8 @@ from pathlib import Path
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 KERNEL_SOURCES = {"decode": "unmore_tpu_torch/csrc/decode.cu"}
-HOST_SOURCES = {"paste": "unmore_tpu_torch/csrc/paste.cpp"}  # host code of the scoring phase, not a kernel
+# host code, not kernels: the scoring phase's paste-back, the train phase's label synthesis
+HOST_SOURCES = {"paste": "unmore_tpu_torch/csrc/paste.cpp", "labels": "unmore_tpu_torch/csrc/labels.cpp"}
 H100_BF16_FLOPS = 989e12  # dense bf16, H100 SXM data sheet
 
 
@@ -573,6 +589,360 @@ def phase_bf16(device, objectness_bf16, images):
           "sdf_sign_agreement": agree})
 
 
+# ------------------------------------------------------------------ phase 6
+# the stage-1 recipe of script.sh: batch 20 at 128^2, Adam 1e-4 with
+# milestones 10000/20000 and gamma 0.1, SDF L1, center L2, gradient and mask
+# losses, bf16 autocast over f32 weights, spike guard 1000 from step 500
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_TIMED_FROM = 20, 128, 30, 10  # steps 11-30 are timed
+TRAIN_WORLD = dict(n=48, sizes=((375, 500), (500, 375), (333, 500)))  # ImageNet-like sizes
+TRAIN_FIXED_STEPS = 8  # steps of a fresh trainer on one fixed batch, whose loss must fall
+TRAIN_WORKERS = 4
+
+
+def sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_bytes(device, reset=False):
+    """``max_memory_allocated`` of a card (None on the CPU); ``reset`` starts a new peak."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
+def shape_world(seed, n, sizes):
+    """A seeded synthetic VoteCut world, as ``scripts/make_synthetic_shapes.py``
+    draws it, in numpy: one rotated rectangle, ellipse or triangle of a solid
+    noisy colour on a low-frequency textured background per image. Returns
+    (float32 images in [0, 1], uint8 masks)."""
+    import numpy as np
+
+    from unmore_tpu_torch.ops.labels import resize_linear
+
+    rng = np.random.default_rng(seed)
+    images, masks = [], []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        img = np.ones((h, w, 3), np.float32) * rng.uniform(0.1, 0.6, 3).astype(np.float32)
+        img += 0.06 * resize_linear(rng.normal(0, 1, (h // 8 + 1, w // 8 + 1, 3)).astype(np.float32), (h, w))
+        img += np.linspace(-0.05, 0.05, h, dtype=np.float32)[:, None, None]
+        img += np.linspace(-0.05, 0.05, w, dtype=np.float32)[None, :, None]
+        yy, xx = np.mgrid[:h, :w].astype(np.float32)
+        s = rng.uniform(0.2, 0.6) * min(h, w)
+        cx, cy = rng.uniform(s * 0.6, w - s * 0.6), rng.uniform(s * 0.6, h - s * 0.6)
+        kind, angle = i % 3, rng.uniform(0, np.pi)
+        u = (xx - cx) * np.cos(angle) + (yy - cy) * np.sin(angle)
+        v = -(xx - cx) * np.sin(angle) + (yy - cy) * np.cos(angle)
+        if kind == 0:
+            sel = (np.abs(u) < s / 2) & (np.abs(v) < s * rng.uniform(0.25, 0.5))
+        elif kind == 1:
+            sel = (u / (s / 2)) ** 2 + (v / (s * rng.uniform(0.25, 0.5))) ** 2 <= 1
+        else:
+            p = np.stack([cx, cy]) + rng.uniform(-s, s, (3, 2))
+            d = [(xx - p[j, 0]) * (p[(j + 1) % 3, 1] - p[j, 1]) - (yy - p[j, 1]) * (p[(j + 1) % 3, 0] - p[j, 0])
+                 for j in range(3)]
+            sel = ((d[0] >= 0) & (d[1] >= 0) & (d[2] >= 0)) | ((d[0] <= 0) & (d[1] <= 0) & (d[2] <= 0))
+        sel[:1], sel[-1:], sel[:, :1], sel[:, -1:] = False, False, False, False
+        colour = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+        img[sel] = colour + 0.05 * rng.normal(0, 1, (int(sel.sum()), 3)).astype(np.float32)
+        images.append(np.clip(img, 0.0, 1.0))
+        masks.append(sel.astype(np.uint8))
+    return images, masks
+
+
+def objectness_worker(images, masks, seed):
+    """One prefetch worker: synthesize_labels -> batch_iterator (wire format)."""
+    import numpy as np
+
+    from unmore_tpu_torch.data.votecut import batch_iterator, synthesize_labels
+
+    rng = np.random.default_rng(seed)
+    it = batch_iterator(lambda i: synthesize_labels(images[i], masks[i], TRAIN_SIZE, True, rng),
+                        len(images), TRAIN_BATCH, rng)
+    return lambda: next(it)
+
+
+def classifier_worker(images, masks, seed):
+    """One prefetch worker: classifier_sample batches in the wire format."""
+    import numpy as np
+
+    from unmore_tpu_torch.data.existence import classifier_sample
+
+    rng = np.random.default_rng(seed)
+
+    def batch():
+        samples = [classifier_sample(images[j], masks[j], masks[j], TRAIN_SIZE, rng)
+                   for j in rng.integers(0, len(images), TRAIN_BATCH)]
+        return {"image": np.clip(np.stack([s[0] for s in samples]) * 255.0 + 0.5, 0, 255).astype(np.uint8),
+                "label": np.array([s[1] for s in samples], np.float32)}
+
+    return batch
+
+
+def step_flops(trainer, batch, key):
+    """Matmul and convolution FLOPs of one forward and backward (FlopCounterMode)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        trainer.loss(batch)[key].backward()
+    trainer.flat.grad.zero_()
+    return counter.get_total_flops()
+
+
+def timed_steps(trainer, prefetch, device, key):
+    """TRAIN_STEPS synchronised steps from the prefetcher: per-step seconds
+    (upload, step, synchronise) and the loss trace."""
+    from unmore_tpu_torch.train.objectness import to_device
+
+    seconds, losses, skipped = [], [], 0.0
+    for _ in range(TRAIN_STEPS):
+        host = next(prefetch)
+        t0 = time.perf_counter()
+        out = trainer.train_step(to_device(host, device))
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(out[key]))
+        skipped += float(out.get("skipped", 0.0))
+    return seconds, losses, skipped
+
+
+def train_summary(name, trainer, prefetch, device, key):
+    """Run the timed steps and return the phase's numbers for one trainer."""
+    import statistics
+
+    from unmore_tpu_torch.train.objectness import to_device
+
+    flops = step_flops(trainer, to_device(next(prefetch), device), key)
+    peak_bytes(device, reset=True)
+    seconds, losses, skipped = timed_steps(trainer, prefetch, device, key)
+    step_s = statistics.median(seconds[TRAIN_TIMED_FROM:])
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail(f"{name}: non-finite training loss {losses}")
+    return {
+        "step_ms_median_11_30": step_s * 1e3, "step_ms": [s * 1e3 for s in seconds], "img_per_s": TRAIN_BATCH / step_s,
+        "tflop_per_step": flops / 1e12, "achieved_tflop_per_s": flops / step_s / 1e12,
+        "mfu_vs_989_tflops_bf16": flops / step_s / H100_BF16_FLOPS,
+        "max_memory_allocated_bytes": peak_bytes(device),
+        "loss_trace": losses, "skipped_in_timed_steps": skipped, "starved_fraction": prefetch.starved_fraction,
+    }
+
+
+def falls_on_fixed_batch(device, batch_host, cfg):
+    """TRAIN_FIXED_STEPS steps of a fresh DPT-Large trainer on one batch at
+    1/10 of the recipe's rate: the mean loss of the last three must be below
+    that of the first three. (At the recipe's 1e-4, Adam's first steps move
+    every weight by 1e-4 at once: the loss jumps by orders of magnitude and
+    then oscillates for dozens of steps, as the JAX package notes for its
+    spike guard, so a few steps say nothing about the gradients.)"""
+    from unmore_tpu_torch.cli.common import build_objectness
+    from unmore_tpu_torch.train.objectness import ObjectnessTrainer, to_device
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    model = build_objectness(DptLarge, "float32", device)
+    init_like_flax(model, seed=1)
+    slow = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, learning_rate=cfg.optim.learning_rate / 10))
+    trainer = ObjectnessTrainer(model, slow)
+    batch = to_device(batch_host, device)
+    losses = [float(trainer.train_step(batch)["total"]) for _ in range(TRAIN_FIXED_STEPS)]
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        fail(f"the loss does not fall on a fixed batch: {losses}")
+    return {"learning_rate": slow.optim.learning_rate, "losses": losses}
+
+
+def guard_check(trainer, batch):
+    """A non-finite batch must be skipped: parameters, moments and counts
+    equal before and after, the step count one higher."""
+    import torch
+
+    before = {"params": trainer.flat.data.clone(), **{k: v.clone() for k, v in trainer.opt.state_tensors().items()}}
+    step = int(trainer.step)
+    bad = dict(batch, sdf=torch.full_like(batch["sdf"], float("nan")))
+    out = trainer.train_step(bad)
+    after = {"params": trainer.flat.data, **trainer.opt.state_tensors()}
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    ok = float(out["skipped"]) == 1.0 and not changed and int(trainer.step) == step + 1
+    if not ok:
+        fail(f"spike guard: skipped={float(out['skipped'])}, changed {changed}, step {step} -> {int(trainer.step)}")
+    return {"skipped": float(out["skipped"]), "loss": repr(float(out["total"])), "state_unchanged": True,
+            "counts": {k: int(v) for k, v in before.items() if v.ndim == 0}, "step": [step, int(trainer.step)]}
+
+
+def tiny_objectness():
+    from unmore_tpu_torch.models.objectness import ObjectnessNet
+    from unmore_tpu_torch.models.vit import ViTConfig
+
+    return ObjectnessNet("dpt_base", "tanh", True, features=64, hooks=(0, 1, 2, 3), widths=(32, 64, 128, 128),
+                         vit_config=ViTConfig(depth=4, dim=128, heads=4, mlp_dim=256, pretrain_grid=8))
+
+
+def f32_card_vs_cpu(device, batch_host):
+    """One f32 step of a narrow ObjectnessNet (TF32 off) on the card and on
+    the CPU from equal weights and an equal batch: the largest differences."""
+    import torch
+
+    from unmore_tpu_torch.config import ModelConfig, TrainObjectnessConfig
+    from unmore_tpu_torch.train.objectness import ObjectnessTrainer, to_device
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    cfg = TrainObjectnessConfig(model=ModelConfig(dtype="float32"))
+    cpu_model = tiny_objectness()
+    init_like_flax(cpu_model, 5)
+    card_model = tiny_objectness()
+    card_model.load_state_dict(cpu_model.state_dict())
+    host = {k: v[:2] for k, v in batch_host.items()}
+    outs = []
+    for model, dev in ((cpu_model, torch.device("cpu")), (card_model.to(device), device)):
+        trainer = ObjectnessTrainer(model, cfg)
+        losses = trainer.train_step(to_device(host, dev))
+        outs.append(({k: float(v) for k, v in losses.items()}, trainer.flat.data.cpu()))
+    (l_cpu, p_cpu), (l_card, p_card) = outs
+    return {"crops": 2, "losses_cpu": l_cpu, "losses_card": l_card,
+            "max_abs_loss_diff": max(abs(l_cpu[k] - l_card[k]) for k in l_cpu),
+            "max_abs_param_diff_after_step": float((p_cpu - p_card).abs().max())}
+
+
+def same_tree(got, want, path="ckpt"):
+    """Mismatching leaves of two checkpoint trees (dtype, shape, bits)."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [path]
+        return [bad for k in want for bad in same_tree(got[k], want[k], f"{path}/{k}")]
+    g, w = np.asarray(got), np.asarray(want)
+    return [] if g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w) else [path]
+
+
+def checkpoint_round_trip(name, trainer, folder):
+    """One checkpoint through the async writer, read back leaf for leaf."""
+    from unmore_tpu_torch.train.checkpoints import AsyncCheckpointer, load_msgpack_checkpoint
+
+    path = str(folder / f"{name}.ckpt")
+    writer = AsyncCheckpointer()
+    t0 = time.perf_counter()
+    writer.save(path, trainer.checkpoint_tensors(), trainer.checkpoint_tree)
+    save_call_s = time.perf_counter() - t0
+    info = writer.wait()
+    want = trainer.checkpoint_tree({k: v.cpu().numpy() for k, v in trainer.checkpoint_tensors().items()})
+    t0 = time.perf_counter()
+    got = load_msgpack_checkpoint(path)
+    read_s = time.perf_counter() - t0
+    bad = same_tree(got, want)
+    if bad:
+        fail(f"{name} checkpoint read back differs at {bad[:5]}")
+    return path, {"bytes": info["bytes"], "save_call_s": save_call_s, "write_s": info["seconds"], "read_s": read_s,
+                  "leaves_equal": True}
+
+
+def stage2_on_trained(device, obj_path, cls_path, trainers):
+    """The trained weights through cli/common.py's loaders into the stage-2
+    engine (bf16), equal to the trainers' weights rounded to bf16, then one
+    discovery image group as in phase 3."""
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.cli.common import (
+        build_classifier, build_objectness, load_classifier_weights, load_objectness_weights, make_apply_fns,
+    )
+    from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
+
+    objectness = build_objectness(DptLarge, "bfloat16", device)
+    load_objectness_weights(objectness, obj_path)
+    classifier = build_classifier("bfloat16", device)
+    load_classifier_weights(classifier, cls_path)
+    for model, trainer in zip((objectness, classifier), trainers):
+        loaded, trained = model.state_dict(), trainer.model.state_dict()
+        keys = [*trainer.layout, *getattr(trainer, "stats_layout", ())]
+        bad = [k for k in keys if not torch.equal(loaded[k], trained[k].to(loaded[k].dtype))]
+        if bad:
+            fail(f"stage-2 loader gave other weights than the trainer's at {bad[:5]}")
+    images = synthetic_images(seed=0)
+    cuts = dict(MAIN_PATH_CUTS, **calibrate(objectness, images[0], ReasoningConfig(), device))
+    t0 = time.perf_counter()
+    results = ObjectDiscoveryEngine(*make_apply_fns(objectness, classifier), ReasoningConfig(**cuts),
+                                    device=device).discover_batch(images)
+    sync(device)
+    wall = time.perf_counter() - t0
+    for r in results:
+        b = r["boxes"]
+        if b.ndim != 2 or b.shape[1] != 4 or not np.isfinite(b).all():
+            fail(f"stage 2 on the trained weights returned malformed boxes {b.shape}")
+    return {"wall_s": wall, "cuts": cuts, "n_boxes": [len(r["boxes"]) for r in results],
+            "stats": [r["stats"] for r in results]}
+
+
+def phase_train(device):
+    import torch
+
+    from unmore_tpu_torch.cli.common import build_classifier, build_objectness
+    from unmore_tpu_torch.config import ModelConfig, OptimConfig, TrainObjectnessConfig
+    from unmore_tpu_torch.data.prefetch import PrefetchIterator
+    from unmore_tpu_torch.train.classifier import ClassifierTrainer
+    from unmore_tpu_torch.train.objectness import ObjectnessTrainer, to_device
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    t0 = time.perf_counter()
+    images, masks = shape_world(seed=0, **TRAIN_WORLD)
+    world_s = time.perf_counter() - t0
+    folder = Path("build") / "smoke_train"
+    folder.mkdir(parents=True, exist_ok=True)
+    cfg = TrainObjectnessConfig(model=ModelConfig(dtype="bfloat16"), optim=OptimConfig(), batch_size=TRAIN_BATCH)
+
+    # objectness: DPT-Large, tanh bg-SDF, f32 master weights, bf16 autocast
+    model = build_objectness(DptLarge, "float32", device).train()
+    init_like_flax(model, seed=0)
+    obj = ObjectnessTrainer(model, cfg)
+    prefetch = PrefetchIterator(worker_fns=[objectness_worker(images, masks, 100 + w) for w in range(TRAIN_WORKERS)])
+    try:
+        obj_row = train_summary("objectness", obj, prefetch, device, "total")
+        fixed = to_device(next(prefetch), device)
+    finally:
+        prefetch.close()
+    obj_row["guard"] = guard_check(obj, fixed)
+    obj_path, obj_row["checkpoint"] = checkpoint_round_trip("objectness", obj, folder)
+    obj_row["params"] = obj.flat.data.numel()
+
+    # existence classifier: ResNet-50, BN in train mode, Adam on the schedule
+    model = build_classifier("float32", device)
+    init_like_flax(model, seed=0)
+    cls = ClassifierTrainer(model, OptimConfig(), "bfloat16")
+    prefetch = PrefetchIterator(worker_fns=[classifier_worker(images, masks, 200 + w) for w in range(TRAIN_WORKERS)])
+    try:
+        cls_row = train_summary("classifier", cls, prefetch, device, "loss")
+        hits = total = 0.0
+        for _ in range(4):
+            h, t, _ = cls.eval_step(to_device(next(prefetch), device))
+            hits, total = hits + float(h), total + float(t)
+        batch_host = objectness_worker(images, masks, 300)()
+    finally:
+        prefetch.close()
+    cls_row["eval_accuracy_at_0_5"] = {"hits": hits, "total": total, "accuracy": hits / total}
+    cls_path, cls_row["checkpoint"] = checkpoint_round_trip("classifier", cls, folder)
+    cls_row["params"] = cls.flat.data.numel()
+
+    stage2 = stage2_on_trained(device, obj_path, cls_path, (obj, cls))
+    del obj, cls
+    obj_row["fixed_batch"] = falls_on_fixed_batch(device, batch_host, cfg)
+    f32 = f32_card_vs_cpu(device, batch_host)
+    emit({"phase": "train", "world": {"images": TRAIN_WORLD["n"], "sizes": TRAIN_WORLD["sizes"], "make_s": world_s},
+          "recipe": {"batch": TRAIN_BATCH, "size": TRAIN_SIZE, "dtype": "bfloat16 autocast, f32 master weights",
+                     "optim": dataclasses.asdict(cfg.optim), "skip_loss_above": cfg.skip_loss_above,
+                     "spike_guard_warmup": cfg.spike_guard_warmup},
+          "objectness": dict(obj_row, model="dpt_large (vitl16_384, features 256, tanh bg-sdf)"),
+          "classifier": dict(cls_row, model="resnet50 existence classifier"),
+          "f32_card_vs_cpu": f32, "stage2_on_trained_weights": stage2})
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -607,6 +977,9 @@ def main():
     launches, chunk_row = main_path["launches"], main_path["chunk_row"]
     phase_scoring(device, main_path)
     phase_bf16(device, main_path["objectness"], main_path["images"])
+    del main_path["objectness"], main_path["fns"]
+    torch.cuda.empty_cache()
+    phase_train(device)
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{

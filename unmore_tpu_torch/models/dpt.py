@@ -91,11 +91,12 @@ class DPTFeatureExtractor(nn.Module):
     """images [B, 3, H, W] -> features [B, features, H, W].
 
     ``backbone`` picks a named spec; ``vit_config``/``hooks``/``widths``
-    override it (the tests use miniature dimensions).
+    override it (the tests use miniature dimensions). ``remat_vit``
+    checkpoints the ViT blocks in training.
     """
 
     def __init__(self, backbone: str = "vitl16_384", features: int = 256,
-                 vit_config: ViTConfig | None = None, hooks=None, widths=None):
+                 vit_config: ViTConfig | None = None, hooks=None, widths=None, remat_vit: bool = False):
         super().__init__()
         spec = DPT_BACKBONE_SPECS[backbone]
         vit_cfg = vit_config or VIT_CONFIGS[spec["vit"]]
@@ -103,7 +104,7 @@ class DPTFeatureExtractor(nn.Module):
         widths = tuple(widths) if widths is not None else spec["features"]
         self.patch = vit_cfg.patch
         self.pretrained = nn.Module()
-        self.pretrained.model = ViTBackbone(vit_cfg, hooks)
+        self.pretrained.model = ViTBackbone(vit_cfg, hooks, remat=remat_vit)
         for i in range(4):
             setattr(self.pretrained, f"act_postprocess{i + 1}", _reassemble(i, vit_cfg.dim, widths[i]))
         self.scratch = nn.Module()

@@ -57,7 +57,7 @@ def conv_head(in_ch: int, out_channels: int, use_relu: bool, final_act: str | No
 class ObjectnessNet(nn.Module):
     def __init__(self, backbone_type: str = "dpt_large", sdf_activation: str | None = "tanh",
                  use_bg_sdf: bool = True, features: int = 256, vit_config=None, hooks=None,
-                 widths=None):
+                 widths=None, remat_vit: bool = False):
         super().__init__()
         self.sdf_activation, self.use_bg_sdf = sdf_activation, use_bg_sdf  # the SDF head's layout
         if backbone_type not in BACKBONE_ALIASES:
@@ -66,6 +66,7 @@ class ObjectnessNet(nn.Module):
             )
         self.backbone = DPTFeatureExtractor(
             BACKBONE_ALIASES[backbone_type], features, vit_config=vit_config, hooks=hooks, widths=widths,
+            remat_vit=remat_vit,
         )
         self.center_field_prediction_head = conv_head(features, 2, use_relu=True)
         use_relu, final = sdf_head_layout(sdf_activation, use_bg_sdf)

@@ -1,8 +1,13 @@
 """ResNet-50 (torchvision v1 layout) and the existence classifier (port of
 ``models/resnet.py``).
 
-BN after each conv, stride on the 3x3 conv of each bottleneck, BatchNorm
-from running statistics (the module is used in eval mode). Names follow the
+BN after each conv, stride on the 3x3 conv of each bottleneck. In eval mode
+BatchNorm normalizes with the running statistics (stage 2). In train mode
+(the existence trainer) it normalizes with the batch statistics and updates
+the running ones as flax does: momentum 0.9 on the batch mean and the
+*biased* batch variance, where ``nn.BatchNorm2d`` would take the unbiased
+one. (flax computes that variance as ``mean(x^2) - mean(x)^2``; the port
+with ``torch.var_mean``, which rounds less.) Names follow the
 reference checkpoint: ``classifier_backbone.*`` and
 ``binary_classification_head.*``.
 """
@@ -15,20 +20,36 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+FLAX_BN_MOMENTUM = 0.9  # running = m * running + (1 - m) * batch
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's running-statistics update in train mode."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():  # in f32, whatever autocast made of x
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+            m = FLAX_BN_MOMENTUM
+            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.running_var.mul_(m).add_(var, alpha=1 - m)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
 
 class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1, downsample: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.downsample = (
             nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(planes * 4),
+                BatchNorm2d(planes * 4),
             )
             if downsample
             else None
@@ -47,7 +68,7 @@ class ResNet50(nn.Module):
     def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3)):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         inplanes, planes = 64, 64
         for stage, blocks in enumerate(stage_blocks, start=1):
             layer = nn.Sequential()

@@ -6,7 +6,9 @@ the hooked block outputs). Parameter names follow the reference checkpoint
 (``backbone.pretrained.model.*`` once nested in the DPT module). Position
 embeddings are stored at the pretraining grid and bilinearly resized
 (``align_corners=False``) to the runtime grid. Attention is a plain matmul
-with the softmax in f32.
+with the softmax in f32. With ``remat`` each block runs under
+``torch.utils.checkpoint`` while gradients are on: its activations are
+recomputed in the backward pass (the JAX package's ``remat_vit``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from unmore_tpu_torch.ops.image import resize_bilinear
 
@@ -87,10 +90,11 @@ class ViTBackbone(nn.Module):
     """forward(images [B, 3, H, W]) -> list of [B, 1 + h*w, C] token maps,
     the outputs of blocks ``hooks[i]``; cls token at index 0."""
 
-    def __init__(self, config: ViTConfig, hooks):
+    def __init__(self, config: ViTConfig, hooks, remat: bool = False):
         super().__init__()
         self.config = config
         self.hooks = tuple(hooks)
+        self.remat = remat
         self.cls_token = nn.Parameter(torch.zeros(1, 1, config.dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + config.pretrain_grid**2, config.dim))
         self.patch_embed = PatchEmbed(config)
@@ -114,8 +118,9 @@ class ViTBackbone(nn.Module):
         tokens = torch.cat([self.cls_token.to(tokens.dtype).expand(B, -1, -1), tokens], dim=1) + pos
         taps = {}
         last = max(self.hooks)
+        remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks[: last + 1]):
-            tokens = blk(tokens)
+            tokens = checkpoint(blk, tokens, use_reentrant=False) if remat else blk(tokens)
             if i in self.hooks:
                 taps[i] = tokens
         return [taps[h] for h in self.hooks]

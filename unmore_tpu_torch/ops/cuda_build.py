@@ -4,9 +4,9 @@ Each source exposes a plain C interface and is compiled into a shared
 library under ``build/kernels/`` at the root of the checkout, at first use,
 then loaded with ``ctypes``: a CUDA kernel ``csrc/<name>.cu`` by ``nvcc``
 for ``sm_90a``, host code ``csrc/<name>.cpp`` by ``g++``. The library's
-file name carries a hash of the source, so an edited source is rebuilt and
-a stale library is never loaded. A failed build raises. Nothing here runs
-at import.
+file name carries a hash of the source and the compiler flags, so an
+edited source is rebuilt and a stale library is never loaded. A failed
+build raises. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -25,9 +26,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")  # no FMA: the plain versions' bits
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 # seconds and ptxas report of each build done by this process, by kernel name
 build_log: dict[str, dict] = {}
 
@@ -56,7 +58,9 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(source_path(name).read_bytes()).hexdigest()[:12]
+    src = source_path(name)
+    flags = NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -98,8 +102,10 @@ def build(names) -> dict[str, dict]:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` or ``.cpp``; cached per process."""
-    if name not in _loaded:
-        build([name])
-        _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return _loaded[name]
+    """Build (if needed) and load ``csrc/<name>.cu`` or ``.cpp``; cached per
+    process. Thread-safe: the stage-1 data workers load from threads."""
+    with _load_lock:
+        if name not in _loaded:
+            build([name])
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return _loaded[name]

@@ -47,10 +47,11 @@ def _bilinear_weight_matrix(in_size: int, out_size: int, align_corners: bool) ->
 @functools.lru_cache(maxsize=64)
 def _weights(in_size, out_size, align_corners, device: torch.device) -> torch.Tensor:
     """The weight matrix on ``device``, uploaded once: a copy from pageable
-    host memory waits for the device's stream on every call."""
-    return torch.from_numpy(
-        _bilinear_weight_matrix(in_size, out_size, align_corners).copy()
-    ).to(device)
+    host memory waits for the device's stream on every call. Made outside
+    inference mode whatever the caller's mode, so that a matrix first cached
+    by an inference pass can be saved for a training backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_bilinear_weight_matrix(in_size, out_size, align_corners).copy()).to(device)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int], align_corners: bool = False) -> torch.Tensor:
