@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in six phases,
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in seven phases,
 each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
    nvcc took to build every kernel of the main path from ``unmore_tpu_torch/csrc``
-   (and g++ the host libraries ``csrc/paste.cpp`` and ``csrc/labels.cpp``, in
+   (and g++ the host libraries ``csrc/{paste,labels,cocoeval}.cpp``, in
    parallel);
 2. kernel: ``fused_center_decode`` against its plain PyTorch version on the
    card at the main path's shapes [256,128,128] and [32,128,128] and on a
@@ -48,7 +48,20 @@ each printing one JSON line:
    evaluates; one f32 step of a narrow model on the card against the CPU;
    each trainer's checkpoint through the async writer reads back leaf for
    leaf, and loads through ``cli/common.py`` into the stage-2 engine, which
-   runs one discovery image group on the trained weights.
+   runs one discovery image group on the trained weights;
+7. cad: stage 3, the CAD Cascade Mask R-CNN of
+   ``cad/configs/cascade_mask_rcnn_R_50_FPN.yaml`` at full width (R50-FPN,
+   1000 proposals, 3 cascade stages, masks, 100 detections, canvas 1024,
+   batch 4, bf16, seeded random weights) through ``DetectorEvaluator.predict_batch``
+   on four seeded synthetic scenes with exact GT (480x640, 640x427,
+   375x500, 800x800), then ``evaluate_ap`` on boxes and masks: img/s, the
+   synchronised seconds of trunk+FPN, RPN+proposals (NMS rounds counted),
+   cascade, mask head, host paste+RLE and evaluation, RoIAlign alone,
+   GFLOP an image, MFU, peak memory. Checks: the host library's mask IoU,
+   matching and uint8 resize equal their plain versions; batched f32 calls
+   equal per-image calls; an f32 narrow detector on the card agrees with
+   the CPU. The path runs no kernel of ``csrc/*.cu`` (the JAX package's
+   detector reaches no Pallas kernel).
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -68,8 +81,10 @@ from pathlib import Path
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 KERNEL_SOURCES = {"decode": "unmore_tpu_torch/csrc/decode.cu"}
-# host code, not kernels: the scoring phase's paste-back, the train phase's label synthesis
-HOST_SOURCES = {"paste": "unmore_tpu_torch/csrc/paste.cpp", "labels": "unmore_tpu_torch/csrc/labels.cpp"}
+# host code, not kernels: the paste-back of scoring and of the detector's masks, the label
+# synthesis and image resizes, the COCO evaluator's mask IoU and matching
+HOST_SOURCES = {"paste": "unmore_tpu_torch/csrc/paste.cpp", "labels": "unmore_tpu_torch/csrc/labels.cpp",
+                "cocoeval": "unmore_tpu_torch/csrc/cocoeval.cpp"}
 H100_BF16_FLOPS = 989e12  # dense bf16, H100 SXM data sheet
 
 
@@ -943,6 +958,368 @@ def phase_train(device):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 7
+# the CAD at cad/configs/cascade_mask_rcnn_R_50_FPN.yaml, as build_from_config
+# reads it: R50-FPN (3,4,6,3), RPN top-k 1000/1000 at NMS 0.65, 3 cascade
+# stages, masks, 100 detections at score threshold 0 and NMS 0.5, canvas
+# 1024, min_size 800, eval batch 4, bf16
+CAD_CONFIG = "cad/configs/cascade_mask_rcnn_R_50_FPN.yaml"
+CAD_SCENES = ((480, 640), (640, 427), (375, 500), (800, 800))
+CAD_TIMED_CALLS = 5
+
+
+def draw_shape(rng, h, w, min_frac, max_frac):
+    """One shape as ``scripts/make_synthetic_shapes.py`` draws it (a rotated
+    rectangle, an ellipse or a triangle), rasterized at pixel centers in
+    numpy: (mask [h, w] uint8, colour [3])."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    kind = rng.integers(0, 3)
+    s = int(rng.uniform(min_frac, max_frac) * min(h, w))
+    cx = int(rng.uniform(s * 0.6, w - s * 0.6))
+    cy = int(rng.uniform(s * 0.6, h - s * 0.6))
+    if kind < 2:
+        if kind == 0:
+            a, b = s / 2, int(s * rng.uniform(0.5, 1.0)) / 2
+        else:
+            a, b = s // 2, int(s * rng.uniform(0.25, 0.5))
+        angle = np.deg2rad(rng.uniform(0, 180))
+        u = (xx - cx) * np.cos(angle) + (yy - cy) * np.sin(angle)
+        v = -(xx - cx) * np.sin(angle) + (yy - cy) * np.cos(angle)
+        sel = ((np.abs(u) <= a) & (np.abs(v) <= b)) if kind == 0 else ((u / max(a, 1)) ** 2 + (v / max(b, 1)) ** 2 <= 1)
+    else:
+        p = np.array([[cx + rng.integers(-s, s + 1), cy + rng.integers(-s, s + 1)] for _ in range(3)], np.float32)
+        d = [(xx - p[j, 0]) * (p[(j + 1) % 3, 1] - p[j, 1]) - (yy - p[j, 1]) * (p[(j + 1) % 3, 0] - p[j, 0])
+             for j in range(3)]
+        sel = ((d[0] >= 0) & (d[1] >= 0) & (d[2] >= 0)) | ((d[0] <= 0) & (d[1] <= 0) & (d[2] <= 0))
+    mask = sel.astype(np.uint8)
+    mask[:1], mask[-1:], mask[:, :1], mask[:, -1:] = 0, 0, 0, 0
+    return mask, rng.uniform(0.2, 1.0, size=3).astype(np.float32)
+
+
+def scene_world(seed, sizes=CAD_SCENES):
+    """Seeded multi-object scenes with exact GT, as ``make_synthetic_shapes.py``
+    ``gen_scenes`` makes them (textured background, 2-6 shapes of 12-35% of
+    the short side, at most 15% overlap, the later shape cut by the earlier):
+    (uint8 images, COCO GT dict with boxes, areas and RLE masks)."""
+    import numpy as np
+
+    from unmore_tpu_torch.ops.labels import resize_linear
+    from unmore_tpu_torch.utils import rle
+
+    rng = np.random.default_rng(seed + 77)
+    images, infos, anns = [], [], []
+    for i, (h, w) in enumerate(sizes, start=1):
+        img = np.ones((h, w, 3), np.float32) * rng.uniform(0.1, 0.6, size=3).astype(np.float32)
+        img += 0.06 * resize_linear(rng.normal(0, 1, (h // 8 + 1, w // 8 + 1, 3)).astype(np.float32), (h, w))
+        img += np.linspace(-0.05, 0.05, h, dtype=np.float32)[:, None, None]
+        img += np.linspace(-0.05, 0.05, w, dtype=np.float32)[None, :, None]
+        img = np.clip(img, 0.0, 1.0)
+        occupied = np.zeros((h, w), bool)
+        for _ in range(int(rng.integers(2, 7))):
+            for _attempt in range(8):
+                mask, colour = draw_shape(rng, h, w, 0.12, 0.35)
+                if ((mask > 0) & occupied).sum() <= 0.15 * max(mask.sum(), 1):
+                    break
+            mask = mask & ~occupied.astype(np.uint8)
+            if mask.sum() < 100:
+                continue
+            occupied |= mask > 0
+            tex = colour[None, None, :] + 0.05 * rng.normal(0, 1, (h, w, 3)).astype(np.float32)
+            img[mask > 0] = np.clip(tex[mask > 0], 0.0, 1.0)
+            ys, xs = np.nonzero(mask)
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
+                         "bbox": [int(xs.min()), int(ys.min()), int(np.ptp(xs)) + 1, int(np.ptp(ys)) + 1],
+                         "area": int(mask.sum()), "segmentation": rle.encode(mask)})
+        images.append((img * 255).astype(np.uint8))
+        infos.append({"id": i, "file_name": f"{i:012d}.jpg", "height": h, "width": w})
+    return images, {"images": infos, "annotations": anns, "categories": [{"id": 1, "name": "fg"}]}
+
+
+def synced_stages(device, times, rounds):
+    """A ``stage(name)`` context manager for the detector that synchronises
+    at both ends and adds each part's seconds to ``times`` and the NMS rounds
+    run inside it to ``rounds``."""
+    import contextlib
+
+    from unmore_tpu_torch.ops.nms import nms_mask
+
+    @contextlib.contextmanager
+    def stage(name):
+        sync(device)
+        t0, r0 = time.perf_counter(), nms_mask.rounds
+        yield
+        sync(device)
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        rounds[name] = rounds.get(name, 0) + nms_mask.rounds - r0
+
+    return stage
+
+
+def match_detections(got, want):
+    """Pair each annotation of ``got`` with the unused one of ``want`` on
+    the same image with the nearest box: (largest box difference, largest
+    score difference, share of mask pixels that differ, unmatched count)."""
+    import numpy as np
+
+    from unmore_tpu_torch.utils import rle
+
+    used, box_d, score_d, px, area, unmatched = set(), 0.0, 0.0, 0, 0, 0
+    for g in got:
+        cands = [j for j, w in enumerate(want) if w["image_id"] == g["image_id"] and j not in used]
+        if not cands:
+            unmatched += 1
+            continue
+        j = min(cands, key=lambda j: float(np.abs(np.subtract(want[j]["bbox"], g["bbox"])).sum()))
+        used.add(j)
+        box_d = max(box_d, float(np.abs(np.subtract(want[j]["bbox"], g["bbox"])).max()))
+        score_d = max(score_d, abs(want[j]["score"] - g["score"]))
+        if "segmentation" in g:
+            a, b = rle.decode(g["segmentation"]), rle.decode(want[j]["segmentation"])
+            px += int((a != b).sum())
+            area += int(a.sum() + b.sum())
+    return box_d, score_d, px / max(area, 1), unmatched + len(want) - len(used)
+
+
+def cad_model(cfg, device, seed=0):
+    """The detector of ``cfg`` with seeded random weights (the JAX package's
+    initializers), in eval mode on ``device`` in ``cfg.dtype``."""
+    from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    model = CascadeMaskRCNN(cfg)
+    init_like_flax(model, seed)
+    return model.to(device, cfg.dtype).eval()
+
+
+def cad_card_vs_cpu(device):
+    """An f32 narrow detector (trunk blocks (1,1,1,1), canvas 256, RPN top-k
+    128, 16 detections) on the card (TF32 off) and on the CPU from equal
+    weights and inputs. On given boxes (no ranking): the largest differences
+    of boxes, scores and masks. End to end: each card detection paired with
+    the CPU one of its image with the nearest box (random weights give
+    near-equal scores, whose order two devices may swap), the largest
+    differences and the detections left unpaired."""
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.detector.cascade_rcnn import (
+        DetectorConfig, detector_forward_inference, detector_forward_with_boxes,
+    )
+
+    cfg = DetectorConfig(image_size=256, stage_blocks=(1, 1, 1, 1), rpn_pre_nms_topk_test=128,
+                         rpn_post_nms_topk_test=128, detections_per_image=16, dtype=torch.float32)
+    cpu_model = cad_model(cfg, torch.device("cpu"), seed=3)
+    card_model = cad_model(cfg, torch.device("cpu"), seed=3).to(device)
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy((rng.rand(2, 256, 256, 3) * 255).astype(np.uint8))
+    hw = torch.tensor([[256.0, 256.0], [192.0, 240.0]])
+    xy = torch.from_numpy(rng.rand(2, 24, 2).astype(np.float32) * 180)
+    boxes = torch.cat([xy, xy + torch.from_numpy(rng.rand(2, 24, 2).astype(np.float32) * 120 + 8)], -1)
+    valid = torch.ones(2, 24, dtype=torch.bool)
+    on_boxes = [detector_forward_with_boxes(m, cfg, images.to(d), hw.to(d), boxes.to(d), valid.to(d))
+                for m, d in ((cpu_model, torch.device("cpu")), (card_model, device))]
+    want, got = on_boxes[0], {k: v.cpu() for k, v in on_boxes[1].items()}
+    out = {"given_boxes": {f"max_abs_{k}_diff": float((want[k] - got[k]).abs().max())
+                           for k in ("boxes", "scores", "masks")}}
+    ends = [detector_forward_inference(m, cfg, images.to(d), hw.to(d))
+            for m, d in ((cpu_model, torch.device("cpu")), (card_model, device))]
+    want, got = ends[0], {k: v.cpu() for k, v in ends[1].items()}
+    box_d = score_d = mask_d = 0.0
+    unpaired = 0
+    for b in range(2):
+        w_idx = [int(i) for i in torch.nonzero(want["valid"][b])]
+        for i in map(int, torch.nonzero(got["valid"][b])):
+            if not w_idx:
+                unpaired += 1
+                continue
+            j = min(w_idx, key=lambda j: float((want["boxes"][b, j] - got["boxes"][b, i]).abs().max()))
+            w_idx.remove(j)
+            box_d = max(box_d, float((want["boxes"][b, j] - got["boxes"][b, i]).abs().max()))
+            score_d = max(score_d, abs(float(want["scores"][b, j] - got["scores"][b, i])))
+            mask_d = max(mask_d, float((want["masks"][b, j] - got["masks"][b, i]).abs().max()))
+        unpaired += len(w_idx)
+    out["end_to_end"] = {"n_valid": [int(want["valid"].sum()), int(got["valid"].sum())], "unpaired": unpaired,
+                         "max_abs_box_diff": box_d, "max_abs_score_diff": score_d, "max_abs_mask_diff": mask_d}
+    return out
+
+
+def cad_roi_align_ms(model, cfg, images, device):
+    """Event-timed ms of the RoIAlign gathers alone on the batch's own boxes:
+    one cascade stage's 7x7 pooling of the proposals, and the 14x14 pooling
+    of the final detections (the share a hand kernel could win)."""
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.detector.cascade_rcnn import (
+        backbone_features, detector_forward_inference, level_anchors,
+    )
+    from unmore_tpu_torch.detector.evaluation import prepare_eval_image
+    from unmore_tpu_torch.detector.fpn import LEVELS
+    from unmore_tpu_torch.detector.rpn import generate_proposals
+
+    prepared = [prepare_eval_image(im, cfg.image_size) for im in images]
+    canvases = torch.from_numpy(np.stack([p[0] for p in prepared])).to(device)
+    hw = torch.tensor([p[2] for p in prepared], dtype=torch.float32, device=device)
+    with torch.inference_mode():
+        feats, roi = backbone_features(model, canvases)
+        rpn_out = model.rpn(feats)
+        proposals = generate_proposals(level_anchors(cfg.image_size, device),
+                                       [rpn_out[n]["objectness"] for n in LEVELS],
+                                       [rpn_out[n]["deltas"] for n in LEVELS], hw, cfg.rpn_pre_nms_topk_test,
+                                       cfg.rpn_post_nms_topk_test, cfg.rpn_nms_thresh)[0]
+        dets = detector_forward_inference(model, cfg, canvases, hw)["boxes"]
+        return {"box_7x7_per_stage": time_ms(lambda: roi.pool(proposals, 7, cfg.pooler_sampling)),
+                "mask_14x14": time_ms(lambda: roi.pool(dets, 14, cfg.pooler_sampling)),
+                "boxes": [list(proposals.shape[:2]), list(dets.shape[:2])]}
+
+
+def cad_flops_per_image(model, cfg, device):
+    """Matmul and convolution FLOPs of one batch-4 inference over 4, by
+    FlopCounterMode (RoIAlign's gathers and the NMS count nothing)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from unmore_tpu_torch.detector.cascade_rcnn import detector_forward_inference
+
+    images = torch.zeros(4, cfg.image_size, cfg.image_size, 3, dtype=torch.uint8, device=device)
+    hw = torch.full((4, 2), float(cfg.image_size), device=device)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        detector_forward_inference(model, cfg, images, hw)
+    return counter.get_total_flops() / 4
+
+
+def phase_cad(device, smi):
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import unmore_tpu_torch.evaluation.coco_eval as coco_eval_module
+    from unmore_tpu_torch.cli import train_net
+    from unmore_tpu_torch.detector.evaluation import DetectorEvaluator
+    from unmore_tpu_torch.ops import cocoeval
+    from unmore_tpu_torch.ops.labels import resize_linear_u8, resize_linear_u8_plain
+
+    t0 = time.perf_counter()
+    images, gt = scene_world(seed=0)
+    world_s = time.perf_counter() - t0
+    ids = [im["id"] for im in gt["images"]]
+    args = train_net.parse_args(["--config-file", CAD_CONFIG, "--eval-only"])
+    cfg = train_net.build_from_config(args)[0]
+    model = cad_model(cfg, device)
+    evaluator = DetectorEvaluator(model, cfg, device=device)
+
+    first = evaluator.predict_batch(images, ids)  # warm-up: cuDNN, allocator, host library
+    walls, parts, rounds = [], [], []
+    sync(device)
+    peak_bytes(device, reset=True)
+    for _ in range(CAD_TIMED_CALLS):
+        times, nms_rounds = {}, {}
+        t0 = time.perf_counter()
+        preds = evaluator.predict_batch(images, ids, stage=synced_stages(device, times, nms_rounds))
+        walls.append(time.perf_counter() - t0)
+        parts.append(times)
+        rounds.append(nms_rounds)
+    peak = peak_bytes(device)
+    wall = statistics.median(walls)
+    median_parts = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+
+    # the evaluator, with every call of the host library recorded
+    calls = []
+    real_iou, real_match = cocoeval.mask_iou, cocoeval.coco_match
+
+    def mask_iou(a, b, iscrowd=None):
+        out = real_iou(a, b, iscrowd)
+        calls.append(("iou", (a, b, iscrowd), out))
+        return out
+
+    def coco_match(*a):
+        out = real_match(*a)
+        calls.append(("match", tuple(np.copy(x) for x in a), out))
+        return out
+
+    cocoeval.mask_iou, cocoeval.coco_match = mask_iou, coco_match
+    try:
+        t0 = time.perf_counter()
+        metrics = coco_eval_module.evaluate_ap(gt, preds, iou_types=("bbox", "segm"))
+        eval_s = time.perf_counter() - t0
+    finally:
+        cocoeval.mask_iou, cocoeval.coco_match = real_iou, real_match
+
+    problems = []
+    bad = 0
+    for kind, a, got in calls:
+        want = cocoeval.mask_iou_plain(*a) if kind == "iou" else cocoeval.coco_match_plain(*a)
+        same = np.array_equal(got, want) if kind == "iou" else all(map(np.array_equal, got, want))
+        bad += int(not same)
+    if bad or not calls:
+        problems.append(f"{bad} of {len(calls)} host-library evaluator calls differ from the plain version")
+    for img in images:
+        scale = min(800 / min(img.shape[:2]), cfg.image_size / max(img.shape[:2]))
+        hw = (int(round(img.shape[0] * scale)), int(round(img.shape[1] * scale)))
+        if not np.array_equal(resize_linear_u8(img, hw), resize_linear_u8_plain(img, hw)):
+            problems.append(f"uint8 resize of {img.shape[:2]} -> {hw} differs from the plain version")
+    if first != preds:
+        problems.append("two bf16 calls on the same batch gave different predictions")
+    n_per_image = [sum(a["image_id"] == i for a in preds) for i in ids]
+    if not all(n == cfg.detections_per_image for n in n_per_image):
+        problems.append(f"detections per image {n_per_image}, expected {cfg.detections_per_image} each")
+    if not all(np.isfinite(a["score"]) and np.isfinite(a["bbox"]).all() for a in preds):
+        problems.append("non-finite detections")
+    if not all(np.isfinite(v) for m in metrics.values() for k, v in m.items() if k in ("AP", "AR100")):
+        problems.append(f"non-finite metrics {metrics}")
+
+    # batched equal to per-image calls, in f32 (TF32 off), where bf16
+    # rounding does not mask a fault of the per-image bookkeeping
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ev32 = DetectorEvaluator(cad_model(cfg32, device), cfg32, device=device)
+    batched = ev32.predict_batch(images, ids)
+    single = [a for img, i in zip(images, ids) for a in ev32.predict_image(img, i)]
+    box_d, score_d, px_share, unmatched = match_detections(batched, single)
+    batched_vs_single = {"max_abs_box_diff_px": box_d, "max_abs_score_diff": score_d,
+                         "mask_pixels_differing_share": px_share, "unmatched": unmatched}
+    if unmatched or box_d > 0.05 or score_d > 1e-4 or px_share > 1e-3:
+        problems.append(f"batched and per-image f32 calls differ: {batched_vs_single}")
+    del ev32
+    card_vs_cpu = cad_card_vs_cpu(device)
+    given, end = card_vs_cpu["given_boxes"], card_vs_cpu["end_to_end"]
+    # boxes within 1e-2 px, scores within 1e-4, masks within 1e-3; end to end
+    # at most one detection an image may fall on the other side of the top 16
+    if not (given["max_abs_boxes_diff"] <= 1e-2 and given["max_abs_scores_diff"] <= 1e-4
+            and given["max_abs_masks_diff"] <= 1e-3 and end["unpaired"] <= 2 and end["max_abs_box_diff"] <= 1e-2
+            and end["max_abs_score_diff"] <= 1e-4 and end["max_abs_mask_diff"] <= 1e-3):
+        problems.append(f"f32 card and CPU detectors differ: {card_vs_cpu}")
+
+    roi_align_ms = cad_roi_align_ms(model, cfg, images, device) if device.type == "cuda" else None
+    flops = cad_flops_per_image(model, cfg, device)
+    device_s = sum(median_parts[k] for k in ("backbone", "rpn", "cascade", "mask"))
+    emit({
+        "phase": "cad", "nvidia_smi": smi, "config": CAD_CONFIG,
+        "model": "cascade mask r-cnn r50-fpn, seeded random weights, bf16",
+        "detector_config": {k: str(v) if k == "dtype" else v for k, v in dataclasses.asdict(cfg).items()},
+        "images": [list(im.shape[:2]) for im in images], "gt_instances": len(gt["annotations"]),
+        "world_make_s": world_s, "batch": len(images), "timed_calls": CAD_TIMED_CALLS,
+        "wall_s": walls, "wall_s_median": wall, "img_per_s": len(images) / wall,
+        "synchronised_s_median": {"trunk_fpn": median_parts["backbone"], "rpn_proposals": median_parts["rpn"],
+                                  "cascade": median_parts["cascade"], "mask_head": median_parts["mask"],
+                                  "host_paste_rle": median_parts["paste"]},
+        "nms_rounds_per_call": {"rpn": rounds[0].get("rpn", 0), "cascade": rounds[0].get("cascade", 0)},
+        "evaluation_s": eval_s, "roi_align_ms_per_call": roi_align_ms, "gflop_per_image": flops / 1e9,
+        "mfu_vs_989_tflops_bf16_device_s": flops * len(images) / device_s / H100_BF16_FLOPS,
+        "mfu_vs_989_tflops_bf16_wall": flops * len(images) / wall / H100_BF16_FLOPS,
+        "max_memory_allocated_bytes": peak, "detections_per_image": n_per_image, "metrics": metrics,
+        "host_library_calls_checked": len(calls), "batched_vs_single_f32": batched_vs_single,
+        "f32_card_vs_cpu": card_vs_cpu, "kernels_on_path": [], "checks_failed": problems,
+    })
+    if problems:
+        fail(f"cad phase: {problems[:5]}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -980,6 +1357,7 @@ def main():
     del main_path["objectness"], main_path["fns"]
     torch.cuda.empty_cache()
     phase_train(device)
+    phase_cad(device, smi)
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{

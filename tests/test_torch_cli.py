@@ -87,8 +87,9 @@ def test_help_names_the_ignored_flags(capsys):
     for flag in ("--pallas_decode", "--boundary_segment", "--vit_pack", "--devices", "--gpu_index",
                  "--max_restarts", "--hang_timeout_min", "--busy_hang_timeout_min"):
         assert flag in text
-    # the six flags of the TPU build; --max_restarts and --hang_timeout_min supervise the run
-    assert text.count("ignored by this build") >= 6
+    # five flags of the TPU build; --max_restarts and --hang_timeout_min supervise the run, and
+    # --gpu_index picks the card
+    assert text.count("ignored by this build") >= 5
 
 
 def test_partial_plumbing_matches_the_jax_package(tmp_path):
@@ -142,3 +143,41 @@ def test_random_weights_depend_only_on_the_seed():
     common.init_random_variables(tiny_classifier("float32", "cpu"), b, seed=1)
     for (k, v), (_, w) in zip(a.state_dict().items(), b.state_dict().items()):
         torch.testing.assert_close(v.to(torch.bfloat16), w, rtol=0, atol=0, msg=k)
+
+
+def _jax_cli(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"jax_{name}", os.path.join(os.path.dirname(__file__), "..", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+STAGE2_ARGV = ["--coco_image_dir", "images", "--coco_annotations", "instances.json", "--sdf_activation", "tanh",
+               "--use_bg_sdf", "--run_name", "r", "--gpu_index", "1"]
+
+
+@pytest.mark.parametrize("cli", ["object_reasoning", "object_scoring"])
+def test_one_command_line_has_one_fingerprint_in_both_packages(cli, tmp_path):
+    import importlib
+
+    port = importlib.import_module(f"unmore_tpu_torch.cli.{cli}")
+    ckpt = tmp_path / "c.ckpt"
+    ckpt.write_bytes(b"123")
+    argv = STAGE2_ARGV + (["--raw_annotations_path", "r/discovery_results.json"] if cli == "object_scoring" else [])
+    inputs = [str(ckpt), None]
+    want = jax_common.partial_fingerprint(_jax_cli(cli).parse_args(argv), inputs)
+    for extra in ([], ["--device", "cpu"], ["--device", "cuda:3"]):
+        assert common.partial_fingerprint(port.parse_args(argv + extra), inputs) == want
+
+
+@pytest.mark.parametrize("cli", ["object_reasoning", "object_scoring"])
+def test_stage2_device_defaults_to_the_gpu_index_card(cli):
+    import importlib
+
+    port = importlib.import_module(f"unmore_tpu_torch.cli.{cli}")
+    argv = STAGE2_ARGV[:-2] + (["--raw_annotations_path", "r/d.json"] if cli == "object_scoring" else [])
+    assert common.device_name(port.parse_args(argv)) == "cuda:0"
+    assert common.device_name(port.parse_args(argv + ["--gpu_index", "2"])) == "cuda:2"
+    assert common.device_name(port.parse_args(argv + ["--gpu_index", "2", "--device", "cpu"])) == "cpu"

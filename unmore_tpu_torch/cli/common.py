@@ -142,14 +142,21 @@ class StageTimer:
             json.dump(summary, f, indent=2)
 
 
+def device_name(args) -> str:
+    """The stage CLIs' device: ``--device``, else CUDA card ``--gpu_index``."""
+    return args.device or f"cuda:{args.gpu_index}"
+
+
 def partial_fingerprint(args_like, input_paths, skip=()):
     """Fingerprint of everything that determines a stage-2 CLI's per-image
     results: the parsed args (minus launch flags that cannot change
-    outputs) plus the byte sizes of the input files. A changed checkpoint
-    or input rotates the partial file instead of reusing stale results."""
+    outputs, and the port's ``--device``, which the JAX CLIs lack, so that
+    one command line gets one fingerprint in both packages) plus the byte
+    sizes of the input files. A changed checkpoint or input rotates the
+    partial file instead of reusing stale results."""
     base_skip = {
         "max_restarts", "hang_timeout_min", "busy_hang_timeout_min",
-        "devices", "gpu_index",
+        "devices", "gpu_index", "device",
     } | set(skip)
     cfg = {k: v for k, v in sorted(vars(args_like).items()) if k not in base_skip}
     for p in input_paths:

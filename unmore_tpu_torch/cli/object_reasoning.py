@@ -35,9 +35,9 @@ IGNORED = "accepted for compatibility and ignored by this build"
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--gpu_index", type=int, default=0, help=IGNORED + " (use --device)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; 'cpu' runs the plain versions of the kernels")
+    p.add_argument("--gpu_index", type=int, default=0, help="CUDA card to run on (with the default --device)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default cuda:<gpu_index>; 'cpu' runs the plain versions of the kernels")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights used without checkpoints")
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--image_size", type=int, default=128)
@@ -102,14 +102,14 @@ def main(argv=None):
 
     from unmore_tpu_torch import resolve_device
     from unmore_tpu_torch.cli.common import (
-        NpEncoder, StageTimer, build_classifier, build_objectness, init_random_variables,
+        NpEncoder, StageTimer, build_classifier, build_objectness, device_name, init_random_variables,
         load_classifier_weights, load_objectness_weights, load_partial_jsonl, make_apply_fns,
         partial_fingerprint,
     )
     from unmore_tpu_torch.data.coco import COCOImages
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
 
-    device = resolve_device(args.device)
+    device = resolve_device(device_name(args))
     # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -36,9 +36,9 @@ from unmore_tpu_torch.cli.object_reasoning import IGNORED
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--gpu_index", type=int, default=0, help=IGNORED + " (use --device)")
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; 'cpu' runs the models on the CPU")
+    p.add_argument("--gpu_index", type=int, default=0, help="CUDA card to run on (with the default --device)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device; default cuda:<gpu_index>; 'cpu' runs the models on the CPU")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights used without checkpoints")
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--image_size", type=int, default=128)
@@ -77,13 +77,13 @@ def main(argv=None):
 
     from unmore_tpu_torch import resolve_device
     from unmore_tpu_torch.cli.common import (
-        NpEncoder, build_classifier, build_objectness, init_random_variables, load_classifier_weights,
+        NpEncoder, build_classifier, build_objectness, device_name, init_random_variables, load_classifier_weights,
         load_objectness_weights, load_partial_jsonl, make_apply_fns, partial_fingerprint,
     )
     from unmore_tpu_torch.data.coco import COCOImages
     from unmore_tpu_torch.reasoning.scoring import ObjectScoringEngine, ScoringConfig
 
-    device = resolve_device(args.device)
+    device = resolve_device(device_name(args))
     # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

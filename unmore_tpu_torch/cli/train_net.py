@@ -1,0 +1,309 @@
+"""CAD detector evaluation CLI on one CUDA device (port of ``cad/train_net.py``).
+
+    python -m unmore_tpu_torch.cli.train_net --eval-only \\
+        --config-file cad/configs/cascade_mask_rcnn_R_50_FPN.yaml \\
+        --test-json instances.json --test-image-dir images MODEL.WEIGHTS model_0030000.ckpt
+
+The JAX CLI's flags, YAML configs (``_BASE_`` inheritance, dotted ``opts``)
+and files: ``OUTPUT_DIR/config.yaml`` (JSON text, which YAML readers
+read), ``coco_instances_results.json``, ``metrics_eval_only.json``, and the
+``TEST.EXPECTED_RESULTS`` gate. ``MODEL.WEIGHTS`` (or ``--resume``, the
+newest ``model_NNNNNNN.ckpt`` in ``OUTPUT_DIR``) takes the JAX trainer's
+msgpack ``TrainState`` (its ``params`` and ``batch_stats``) or a state dict
+of this port; without one the detector gets random weights from seed 0.
+Images are evaluated ``--eval-bs`` at a time (4 by default), the last batch
+padded with blank images, decoded on ``--eval-workers`` threads while the
+device runs. ``--max-restarts N`` relaunches the run as a
+supervised child. Training is not ported yet (``ROADMAP.md`` A8c): without
+``--eval-only`` the CLI raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+import time
+
+import numpy as np
+
+from unmore_tpu_torch.cli import supervisor
+
+IGNORED = "accepted for compatibility and ignored by this build"
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--config-file", type=str, default=None)
+    p.add_argument("--num-gpus", type=int, default=1, help=IGNORED + " (one device)")
+    p.add_argument("--num-machines", type=int, default=1, help=IGNORED)
+    p.add_argument("--machine-rank", type=int, default=0, help=IGNORED)
+    p.add_argument("--dist-url", type=str, default=None, help=IGNORED)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--test-dataset", type=str, default="")
+    p.add_argument("--train-dataset", type=str, default="")
+    p.add_argument("--no-segm", action="store_true")
+    p.add_argument("--train-json", type=str, default=None)
+    p.add_argument("--image-root", action="append", default=[],
+                   help="PREFIX=DIR (e.g. coco=/data/train2017); repeatable")
+    p.add_argument("--test-json", type=str, default=None)
+    p.add_argument("--test-image-dir", type=str, default=None)
+    p.add_argument("--data-root", type=str, default=None,
+                   help="resolve --test-dataset names via the dataset registry")
+    p.add_argument("--canvas-size", type=int, default=1024)
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"])
+    p.add_argument("--eval-bs", type=int, default=0, help="eval inference batch (0 = auto: 4 on one device)")
+    p.add_argument("--eval-workers", type=int, default=2, help="image-decode threads overlapping the device")
+    p.add_argument("--train-workers", type=int, default=4, help=IGNORED + " (training is not ported)")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="supervise the run: relaunch it (with --resume) up to N times after a crash, a kill "
+                        "or --hang-timeout-min of output silence")
+    p.add_argument("--hang-timeout-min", type=float, default=40.0,
+                   help="supervised runs only: kill and restart a child that prints nothing for this many "
+                        "minutes (0: never)")
+    p.add_argument("--busy-hang-timeout-min", type=float, default=15.0,
+                   help=IGNORED + " (the busy-wedge watchdog of the TPU build)")
+    p.add_argument("--corrupt-loss-ceiling", type=float, default=1e3, help=IGNORED + " (training is not ported)")
+    p.add_argument("--device", type=str, default=None, help="torch device (default cuda); 'cpu' runs on the CPU")
+    p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
+    return p.parse_args(argv)
+
+
+def build_from_config(args):
+    """(DetectorConfig, solver dict, the YAML config dict), as the JAX CLI
+    builds them from ``--config-file`` and ``opts`` (the detector's training
+    fields wait for training, ``ROADMAP.md`` A8c)."""
+    import torch
+
+    from unmore_tpu_torch.detector.cascade_rcnn import DetectorConfig
+    from unmore_tpu_torch.detector.config_yaml import apply_opts, get, load_yacs_config
+
+    cfg_yaml = load_yacs_config(args.config_file) if args.config_file else {}
+    if args.opts:
+        apply_opts(cfg_yaml, [o for o in args.opts if o != "--"])
+
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    det_cfg = DetectorConfig(
+        num_classes=get(cfg_yaml, "MODEL.ROI_HEADS.NUM_CLASSES", 1),
+        image_size=args.canvas_size,
+        stage_blocks=tuple(get(cfg_yaml, "MODEL.RESNETS.STAGE_BLOCKS", (3, 4, 6, 3))),
+        rpn_pre_nms_topk_test=get(cfg_yaml, "MODEL.RPN.PRE_NMS_TOPK_TEST", 1000),
+        rpn_post_nms_topk_test=get(cfg_yaml, "MODEL.RPN.POST_NMS_TOPK_TEST", 1000),
+        rpn_nms_thresh=get(cfg_yaml, "MODEL.RPN.NMS_THRESH", 0.65),
+        mask_on=get(cfg_yaml, "MODEL.MASK_ON", True) and not args.no_segm,
+        test_score_thresh=get(cfg_yaml, "MODEL.ROI_HEADS.SCORE_THRESH_TEST", 0.0),
+        detections_per_image=get(cfg_yaml, "TEST.DETECTIONS_PER_IMAGE", 100),
+        dtype=dtypes[args.dtype],
+    )
+    solver = {
+        "base_lr": get(cfg_yaml, "SOLVER.BASE_LR", 0.01),
+        "max_iter": get(cfg_yaml, "SOLVER.MAX_ITER", 30000),
+        "ims_per_batch": get(cfg_yaml, "SOLVER.IMS_PER_BATCH", 16),
+        "weight_decay": get(cfg_yaml, "SOLVER.WEIGHT_DECAY", 5e-5),
+        "steps": tuple(get(cfg_yaml, "SOLVER.STEPS", ()) or ()),
+        "gamma": get(cfg_yaml, "SOLVER.GAMMA", 0.02),
+        "clip_norm": get(cfg_yaml, "SOLVER.CLIP_GRADIENTS.CLIP_VALUE", 1.0),
+        "checkpoint_period": get(cfg_yaml, "SOLVER.CHECKPOINT_PERIOD", 1000),
+        "min_sizes": tuple(get(cfg_yaml, "INPUT.MIN_SIZE_TRAIN", (640, 672, 704, 736, 768, 800))),
+        "copy_paste": get(cfg_yaml, "DATALOADER.COPY_PASTE", True),
+        "copy_paste_rate": get(cfg_yaml, "DATALOADER.COPY_PASTE_RATE", 1.0),
+        "copy_paste_random_num": get(cfg_yaml, "DATALOADER.COPY_PASTE_RANDOM_NUM", True),
+        "copy_paste_min_ratio": get(cfg_yaml, "DATALOADER.COPY_PASTE_MIN_RATIO", 0.3),
+        "copy_paste_max_ratio": get(cfg_yaml, "DATALOADER.COPY_PASTE_MAX_RATIO", 1.0),
+        "output_dir": get(cfg_yaml, "OUTPUT_DIR", "cad_results/run"),
+        "weights": get(cfg_yaml, "MODEL.WEIGHTS", None),
+        "eval_period": get(cfg_yaml, "TEST.EVAL_PERIOD", 0),
+        "precise_bn": get(cfg_yaml, "TEST.PRECISE_BN.ENABLED", False),
+        "precise_bn_iters": get(cfg_yaml, "TEST.PRECISE_BN.NUM_ITER", 200),
+        "warmup_iters": get(cfg_yaml, "SOLVER.WARMUP_ITERS", 1000),
+        "reference_world_size": get(cfg_yaml, "SOLVER.REFERENCE_WORLD_SIZE", 0),
+    }
+    return det_cfg, solver, cfg_yaml
+
+
+def auto_scale_workers(solver: dict, num_workers: int) -> dict:
+    """Linear-scaling-rule rescale when the device count differs from
+    SOLVER.REFERENCE_WORLD_SIZE: batch and LR scale up with workers;
+    iterations, steps and periods scale down. No-op when
+    REFERENCE_WORLD_SIZE is 0 or already matches."""
+    old = solver["reference_world_size"]
+    if old == 0 or old == num_workers:
+        return solver
+    assert solver["ims_per_batch"] % old == 0, "Invalid REFERENCE_WORLD_SIZE in config!"
+    scale = num_workers / old
+    s = dict(solver)
+    s["ims_per_batch"] = int(round(solver["ims_per_batch"] * scale))
+    s["base_lr"] = solver["base_lr"] * scale
+    s["max_iter"] = int(round(solver["max_iter"] / scale))
+    s["warmup_iters"] = int(round(solver["warmup_iters"] / scale))
+    s["steps"] = tuple(int(round(x / scale)) for x in solver["steps"])
+    s["eval_period"] = int(round(solver["eval_period"] / scale))
+    s["checkpoint_period"] = int(round(solver["checkpoint_period"] / scale))
+    s["reference_world_size"] = num_workers
+    print(
+        f"auto-scaled config to batch_size={s['ims_per_batch']}, "
+        f"learning_rate={s['base_lr']}, max_iter={s['max_iter']}, "
+        f"warmup={s['warmup_iters']}."
+    )
+    return s
+
+
+def verify_results(cfg_yaml: dict, metrics: dict) -> bool:
+    """TEST.EXPECTED_RESULTS entries [task, metric, expected (0-100),
+    tolerance] against metrics in [0, 1]; raises on a violation (a missing
+    metric is NaN and fails)."""
+    from unmore_tpu_torch.detector.config_yaml import get
+
+    expected = get(cfg_yaml, "TEST.EXPECTED_RESULTS", []) or []
+    ok = True
+    for task, metric, target, tol in expected:
+        actual = 100.0 * float(metrics.get(task, {}).get(metric, float("nan")))
+        good = np.isfinite(actual) and abs(actual - float(target)) <= float(tol)
+        print(
+            f"verify_results: {task}/{metric} = {actual:.2f} "
+            f"(expected {target} +/- {tol}) -> {'OK' if good else 'FAIL'}",
+            flush=True,
+        )
+        ok = ok and good
+    if not ok:
+        raise AssertionError(f"eval metrics outside TEST.EXPECTED_RESULTS: {expected}")
+    return ok
+
+
+def find_last_checkpoint(out_dir: str) -> str | None:
+    """The newest ``model_NNNNNNN.ckpt`` in ``out_dir``."""
+    best, best_iter = None, -1
+    if not os.path.isdir(out_dir):
+        return None
+    for name in os.listdir(out_dir):
+        m = re.fullmatch(r"model_(\d+)\.ckpt", name)
+        if m and int(m.group(1)) > best_iter:
+            best, best_iter = os.path.join(out_dir, name), int(m.group(1))
+    return best
+
+
+def load_detector_weights(model, path: str):
+    """A JAX msgpack checkpoint (a ``TrainState``'s ``params`` and
+    ``batch_stats``) or a state dict of this port (bare or under
+    ``model_state_dict``) into ``model``; every key must match."""
+    from unmore_tpu_torch.detector.convert import state_dict_from_flax
+    from unmore_tpu_torch.models.convert import load_torch_checkpoint
+    from unmore_tpu_torch.train.checkpoints import try_msgpack_checkpoint
+
+    tree = try_msgpack_checkpoint(path)
+    if tree is None:
+        sd = load_torch_checkpoint(path)
+    else:
+        sd = state_dict_from_flax({"params": tree["params"], "batch_stats": tree.get("batch_stats", {})})
+    model.load_state_dict(sd, strict=True)
+
+
+def _supervised(args, argv) -> int:
+    """Run this CLI as a supervised child; restarts add --resume."""
+    raw = list(argv) if argv is not None else sys.argv[1:]
+    base = supervisor.child_argv(__spec__.name, raw, "--max-restarts")
+
+    def build(attempt):
+        if attempt and "--resume" not in base:
+            i = len(base) - len(args.opts)  # opts is a REMAINDER: flags go before it
+            return base[:i] + ["--resume"] + base[i:]
+        return base
+
+    return supervisor.supervise(build, args.max_restarts, hang_timeout=args.hang_timeout_min * 60 or None)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.max_restarts > 0:
+        sys.exit(_supervised(args, argv))
+    if not args.eval_only:
+        raise NotImplementedError(
+            "CAD training is not ported yet (ROADMAP.md A8c); this CLI runs --eval-only")
+
+    import torch
+
+    from unmore_tpu_torch import resolve_device
+    from unmore_tpu_torch.cli.common import NpEncoder
+    from unmore_tpu_torch.data.coco import COCOImages
+    from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
+    from unmore_tpu_torch.detector.config_yaml import dump_yaml
+    from unmore_tpu_torch.detector.evaluation import DetectorEvaluator
+    from unmore_tpu_torch.evaluation.coco_eval import evaluate_ap
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    device = resolve_device(args.device)
+    # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    det_cfg, solver, cfg_yaml = build_from_config(args)
+    solver = auto_scale_workers(solver, 1)
+    out_dir = solver["output_dir"]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+        f.write(dump_yaml(cfg_yaml) + "\n")
+
+    model = CascadeMaskRCNN(det_cfg)
+    init_like_flax(model, 0)
+    weights = find_last_checkpoint(out_dir) if args.resume else None
+    if weights:
+        print(f"resumed from {weights}")
+    elif solver["weights"] and os.path.isfile(str(solver["weights"])):
+        weights = solver["weights"]
+        print(f"loaded weights from {weights}")
+    if weights:
+        load_detector_weights(model, weights)
+    model = model.to(device, det_cfg.dtype).eval()
+
+    if args.test_dataset and args.data_root:
+        from unmore_tpu_torch.data.registry import resolve_dataset
+
+        test_image_dir, test_json = resolve_dataset(args.test_dataset, args.data_root)
+    else:
+        test_image_dir, test_json = args.test_image_dir, args.test_json
+    assert test_json and test_image_dir, "--test-json/--test-image-dir (or --test-dataset with --data-root) required"
+
+    evaluator = DetectorEvaluator(model, det_cfg, device=device)
+    dataset = COCOImages(test_image_dir, test_json)
+    n = len(dataset)
+    print(f"* eval[eval_only]: {n} images on {device}", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    eval_bs = args.eval_bs if args.eval_bs > 0 else 4
+    # the last batch is padded with blank images under a sentinel id, whose
+    # predictions are dropped: every call has the same batch shape
+    pad = (np.zeros((8, 8, 3), np.float32), -1)
+    preds = []
+    t0 = time.time()
+    with ThreadPoolExecutor(max(args.eval_workers, 1)) as decode_pool, ThreadPoolExecutor(1) as pool:
+
+        def load_chunk(c0):
+            chunk = list(decode_pool.map(lambda i: dataset.get(i, dtype=np.uint8), range(c0, min(c0 + eval_bs, n))))
+            return chunk + [pad] * (eval_bs - len(chunk))
+
+        fut = pool.submit(load_chunk, 0) if n else None
+        for c0 in range(0, n, eval_bs):
+            chunk = fut.result()
+            if c0 + eval_bs < n:
+                fut = pool.submit(load_chunk, c0 + eval_bs)
+            anns = evaluator.predict_batch([im for im, _ in chunk], [int(i) for _, i in chunk])
+            preds.extend(a for a in anns if a["image_id"] != -1)
+            n_done = min(c0 + eval_bs, n)
+            print(f"[{n_done}/{n}] ({n_done / (time.time() - t0):.2f} img/s)", flush=True)
+
+    with open(os.path.join(out_dir, "coco_instances_results.json"), "w") as f:
+        json.dump(preds, f, cls=NpEncoder)
+    tasks = ("bbox",) if args.no_segm or not det_cfg.mask_on else ("bbox", "segm")
+    metrics = evaluate_ap(test_json, preds, iou_types=tasks)
+    with open(os.path.join(out_dir, "metrics_eval_only.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(json.dumps(metrics, indent=2))
+    verify_results(cfg_yaml, metrics)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

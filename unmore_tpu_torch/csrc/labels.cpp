@@ -1,5 +1,5 @@
-// Stage-1 label synthesis, host code: OpenCV's chamfer distance transform
-// and resizes without OpenCV.
+// Stage-1 label synthesis and the detector's eval images, host code:
+// OpenCV's chamfer distance transform and resizes without OpenCV.
 //
 // chamfer_distance_3x3: the distance of every nonzero pixel of a uint8 mask
 // to the nearest zero pixel, by the two-pass 3x3 chamfer that OpenCV's
@@ -11,8 +11,9 @@
 // resize_linear_f32 / resize_nearest_u8: cv2.resize with INTER_LINEAR on
 // float32 (half-pixel taps; positions and fractions in float64, the
 // fraction rounded to float32, clamped at the edges; columns blended, then
-// rows, in float32) and INTER_NEAREST on uint8 (index floor(x * (1 /
-// (dst / src))) in float64).
+// rows, in float32), INTER_LINEAR on uint8 (OpenCV's fixed-point path, for
+// the detector's eval images) and INTER_NEAREST on uint8 (index floor(x *
+// (1 / (dst / src))) in float64).
 //
 // Built with g++ by unmore_tpu_torch/ops/cuda_build.py and bound with
 // ctypes in unmore_tpu_torch/ops/labels.py, which holds the plain numpy
@@ -47,6 +48,26 @@ void linear_taps(int64_t src, int64_t dst, std::vector<int64_t>& i0, std::vector
         i1[j] = lo + 1 < src ? lo + 1 : src - 1;
         w0[j] = 1.f - frac;
         w1[j] = frac;
+    }
+}
+
+// OpenCV's fixed-point INTER_LINEAR taps along one axis: the first source
+// index and the two 11-bit weights. The position is a float of a double
+// product; along x (`clamp_edges`) an index outside [0, src - 1) takes the
+// edge with weight 2048, along y it is left for the caller to clamp.
+void fixed_taps(int64_t src, int64_t dst, bool clamp_edges, std::vector<int64_t>& i0, std::vector<int32_t>& w0,
+                std::vector<int32_t>& w1) {
+    i0.resize(dst), w0.resize(dst), w1.resize(dst);
+    const double step = 1.0 / (static_cast<double>(dst) / static_cast<double>(src));
+    for (int64_t j = 0; j < dst; j++) {
+        float pos = static_cast<float>((static_cast<double>(j) + 0.5) * step - 0.5);
+        int64_t lo = static_cast<int64_t>(std::floor(pos));
+        pos -= static_cast<float>(lo);
+        if (clamp_edges && lo < 0) pos = 0.f, lo = 0;
+        if (clamp_edges && lo >= src - 1) pos = 0.f, lo = src - 1;
+        i0[j] = lo;
+        w0[j] = static_cast<int32_t>(std::lrint((1.f - pos) * 2048.f));
+        w1[j] = static_cast<int32_t>(std::lrint(pos * 2048.f));
     }
 }
 
@@ -133,6 +154,56 @@ void resize_linear_f32(const float* src, int64_t h, int64_t w, int64_t c, int64_
             const float a = r0[i] * wy0[y];
             const float b = r1[i] * wy1[y];
             d[i] = a + b;
+        }
+    }
+}
+
+// src [h, w, c] uint8 with a row stride of `src_row` bytes, dst [H, W, c]
+// uint8: cv2.resize(INTER_LINEAR) of uint8, bit for bit. OpenCV resizes
+// uint8 in fixed point: 11-bit weights (round(w * 2048)) from float
+// positions, columns blended into int32 rows (weights summing to 2048),
+// then rows blended as its vector code does, ((r0 >> 4) * b0 >> 16) +
+// ((r1 >> 4) * b1 >> 16), rounded by (t + 2) >> 2. Source rows outside the
+// image clamp to the edge with the weights unchanged; columns outside it
+// take the edge column with weight 2048. An exact 2x downscale in both axes
+// is OpenCV's INTER_AREA: the rounded mean of each 2x2 block.
+void resize_linear_u8(const uint8_t* src, int64_t h, int64_t w, int64_t c, int64_t src_row, uint8_t* dst, int64_t H,
+                      int64_t W) {
+    if (h == 2 * H && w == 2 * W) {
+        for (int64_t y = 0; y < H; y++) {
+            const uint8_t* s0 = src + 2 * y * src_row;
+            const uint8_t* s1 = s0 + src_row;
+            for (int64_t x = 0; x < W; x++)
+                for (int64_t k = 0; k < c; k++) {
+                    const int64_t i = 2 * x * c + k;
+                    dst[(y * W + x) * c + k] = static_cast<uint8_t>((s0[i] + s0[i + c] + s1[i] + s1[i + c] + 2) >> 2);
+                }
+        }
+        return;
+    }
+    std::vector<int64_t> x0, x1, y0;
+    std::vector<int32_t> ax0, ax1, by0, by1;
+    fixed_taps(w, W, true, x0, ax0, ax1);
+    fixed_taps(h, H, false, y0, by0, by1);
+    x1.resize(W);
+    for (int64_t x = 0; x < W; x++) x1[x] = x0[x] + 1 < w ? x0[x] + 1 : w - 1;
+    std::vector<int32_t> rows(static_cast<size_t>(h * W * c));  // columns blended, every source row
+    for (int64_t y = 0; y < h; y++) {
+        const uint8_t* s = src + y * src_row;
+        int32_t* r = &rows[y * W * c];
+        for (int64_t x = 0; x < W; x++)
+            for (int64_t k = 0; k < c; k++) r[x * c + k] = s[x0[x] * c + k] * ax0[x] + s[x1[x] * c + k] * ax1[x];
+    }
+    for (int64_t y = 0; y < H; y++) {
+        const int64_t i0 = y0[y] < 0 ? 0 : (y0[y] > h - 1 ? h - 1 : y0[y]);
+        const int64_t i1 = y0[y] + 1 < 0 ? 0 : (y0[y] + 1 > h - 1 ? h - 1 : y0[y] + 1);
+        const int32_t* r0 = &rows[i0 * W * c];
+        const int32_t* r1 = &rows[i1 * W * c];
+        uint8_t* d = dst + y * W * c;
+        for (int64_t i = 0; i < W * c; i++) {
+            const int32_t t = (((r0[i] >> 4) * by0[y]) >> 16) + (((r1[i] >> 4) * by1[y]) >> 16);
+            const int32_t v = (t + 2) >> 2;
+            d[i] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
         }
     }
 }

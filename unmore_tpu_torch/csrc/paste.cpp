@@ -218,4 +218,93 @@ int64_t paste_support_rle(const uint8_t* mask, int64_t sh, int64_t sw,
     return m_runs;
 }
 
+// ------------------------------------ probability paste-back (detector)
+//
+// The detector's 28x28 mask probabilities pasted into the full (H, W)
+// image at the integer box extent and thresholded: ops/image.py's
+// paste_mask_into_canvas(prob, box) > thresh, emitted as RLE runs without
+// materializing the canvas. The weights are its weight matrices' (half-pixel
+// positions in float64 clipped to the source, float32 weights, the two taps
+// summed where they meet at the edge); rows are blended first, then
+// columns, in float32. Returns the number of runs (<= H*W+1).
+
+struct ProbAxis {
+    std::vector<int32_t> lo, hi;
+    std::vector<float> wlo, whi;
+};
+
+static void prob_axis(int64_t in, int64_t out, ProbAxis& ax) {
+    ax.lo.resize((size_t)out);
+    ax.hi.resize((size_t)out);
+    ax.wlo.resize((size_t)out);
+    ax.whi.resize((size_t)out);
+    double scale = (double)in / (double)out;
+    double lim = (double)(in - 1);
+    for (int64_t j = 0; j < out; ++j) {
+        double src = ((double)j + 0.5) * scale - 0.5;
+        if (src < 0.0) src = 0.0;
+        if (src > lim) src = lim;
+        double lof = std::floor(src);
+        int64_t lo = (int64_t)lof;
+        int64_t hi = std::min(lo + 1, in - 1);
+        float wl = (float)(1.0 - (src - lof)), wh = (float)(src - lof);
+        if (hi == lo) wl += wh, wh = 0.0f;
+        ax.lo[j] = (int32_t)lo;
+        ax.hi[j] = (int32_t)hi;
+        ax.wlo[j] = wl;
+        ax.whi[j] = wh;
+    }
+}
+
+int64_t paste_prob_rle(const float* prob, int64_t sh, int64_t sw, const float* box, int64_t H, int64_t W,
+                       float thresh, int64_t* runs_out) {
+    int64_t x1, y1, x2, y2;
+    paste_box_bounds(box, H, W, x1, y1, x2, y2);
+    int64_t bh = y2 - y1, bw = x2 - x1;
+    ProbAxis ay, ax;
+    std::vector<float> rows;  // [bh, sw]: the mask's rows blended to the box height
+    if (bh > 0 && bw > 0) {
+        prob_axis(sh, bh, ay);
+        prob_axis(sw, bw, ax);
+        rows.resize((size_t)(bh * sw));
+        for (int64_t j = 0; j < bh; ++j) {
+            const float* r0 = prob + (int64_t)ay.lo[j] * sw;
+            const float* r1 = prob + (int64_t)ay.hi[j] * sw;
+            for (int64_t c = 0; c < sw; ++c) {
+                float a = ay.wlo[j] * r0[c];
+                float b = ay.whi[j] * r1[c];
+                rows[j * sw + c] = a + b;
+            }
+        }
+    }
+    int64_t m_runs = 0, count = 0;
+    uint8_t cur = 0;
+    auto push = [&](uint8_t v, int64_t k) {
+        if (k <= 0) return;
+        if (v == cur) {
+            count += k;
+        } else {
+            runs_out[m_runs++] = count;
+            cur = v;
+            count = k;
+        }
+    };
+    for (int64_t x = 0; x < W; ++x) {
+        if (bh <= 0 || bw <= 0 || x < x1 || x >= x2) {
+            push(0, H);
+            continue;
+        }
+        int64_t i = x - x1;
+        push(0, y1);
+        for (int64_t j = 0; j < bh; ++j) {
+            float a = rows[j * sw + ax.lo[i]] * ax.wlo[i];
+            float b = rows[j * sw + ax.hi[i]] * ax.whi[i];
+            push((a + b) > thresh ? 1 : 0, 1);
+        }
+        push(0, H - y2);
+    }
+    runs_out[m_runs++] = count;
+    return m_runs;
+}
+
 }  // extern "C"

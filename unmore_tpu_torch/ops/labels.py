@@ -16,6 +16,8 @@ raises; there is no silent fallback.
   by up to ~2.6e-6 of the largest distance.
 * :func:`resize_linear` is ``cv2.resize(x, (w, h), INTER_LINEAR)`` of a
   float32 [H, W] or [H, W, C] array (within 2e-7 of OpenCV);
+  :func:`resize_linear_u8` is INTER_LINEAR of uint8, which OpenCV computes
+  in fixed point (the detector's eval images; equal to OpenCV);
   :func:`resize_nearest` is INTER_NEAREST of a uint8 [H, W] array (equal).
 
 Each has a plain numpy version (``*_plain``) with the same float32
@@ -47,6 +49,8 @@ def _load_library() -> ctypes.CDLL:
     lib.chamfer_distance_3x3.argtypes = [_ptr, _i64, _i64, _ptr]
     lib.resize_linear_f32.restype = None
     lib.resize_linear_f32.argtypes = [_ptr, _i64, _i64, _i64, _i64, _ptr, _i64, _i64]
+    lib.resize_linear_u8.restype = None
+    lib.resize_linear_u8.argtypes = [_ptr, _i64, _i64, _i64, _i64, _ptr, _i64, _i64]
     lib.resize_nearest_u8.restype = None
     lib.resize_nearest_u8.argtypes = [_ptr, _i64, _i64, _i64, _ptr, _i64, _i64]
     return lib
@@ -90,6 +94,19 @@ def resize_linear(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     c = x.shape[2] if x.ndim == 3 else 1
     out = np.empty((hw[0], hw[1], c) if x.ndim == 3 else tuple(hw), np.float32)
     _load_library().resize_linear_f32(x.ctypes.data, x.shape[0], x.shape[1], c, row, out.ctypes.data, hw[0], hw[1])
+    return out
+
+
+def resize_linear_u8(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(x, (w, h), interpolation=INTER_LINEAR)`` of a uint8
+    [H, W] or [H, W, C] array, bit for bit: OpenCV's fixed-point path (and
+    its INTER_AREA for an exact 2x downscale)."""
+    if x.ndim not in (2, 3) or 0 in x.shape:
+        raise ValueError(f"resize_linear_u8 takes a non-empty [H, W] or [H, W, C] array, got {x.shape}")
+    x, row = _rows(x, np.uint8)
+    c = x.shape[2] if x.ndim == 3 else 1
+    out = np.empty((hw[0], hw[1], c) if x.ndim == 3 else tuple(hw), np.uint8)
+    _load_library().resize_linear_u8(x.ctypes.data, x.shape[0], x.shape[1], c, row, out.ctypes.data, hw[0], hw[1])
     return out
 
 
@@ -144,6 +161,36 @@ def resize_linear_plain(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
     rows = x[:, x0] * wx0.reshape(col) + x[:, x1] * wx1.reshape(col)
     row = (-1,) + (1,) * (x.ndim - 1)
     return rows[y0] * wy0.reshape(row) + rows[y1] * wy1.reshape(row)
+
+
+def _fixed_taps(src: int, dst: int, clamp_edges: bool):
+    """OpenCV's fixed-point INTER_LINEAR taps along one axis: (i0, w0, w1)."""
+    pos = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(np.float32)
+    i0 = np.floor(pos).astype(np.int64)
+    pos = pos - i0.astype(np.float32)
+    if clamp_edges:
+        out = (i0 < 0) | (i0 >= src - 1)
+        pos[out] = 0.0
+        i0 = np.clip(i0, 0, src - 1)
+    w0 = np.rint((np.float32(1) - pos) * np.float32(2048)).astype(np.int64)
+    return i0, w0, np.rint(pos * np.float32(2048)).astype(np.int64)
+
+
+def resize_linear_u8_plain(x: np.ndarray, hw: tuple[int, int]) -> np.ndarray:
+    """:func:`resize_linear_u8` in numpy (int64 arithmetic)."""
+    h, w = x.shape[:2]
+    if (h, w) == (2 * hw[0], 2 * hw[1]):
+        v = x.astype(np.int64)
+        return ((v[0::2, 0::2] + v[0::2, 1::2] + v[1::2, 0::2] + v[1::2, 1::2] + 2) >> 2).astype(np.uint8)
+    x0, ax0, ax1 = _fixed_taps(w, hw[1], True)
+    y0, by0, by1 = _fixed_taps(h, hw[0], False)
+    col = (1, -1) + (1,) * (x.ndim - 2)
+    v = x.astype(np.int64)
+    rows = v[:, x0] * ax0.reshape(col) + v[:, np.minimum(x0 + 1, w - 1)] * ax1.reshape(col)
+    row = (-1,) + (1,) * (x.ndim - 1)
+    t = (((rows[np.clip(y0, 0, h - 1)] >> 4) * by0.reshape(row)) >> 16) + \
+        (((rows[np.clip(y0 + 1, 0, h - 1)] >> 4) * by1.reshape(row)) >> 16)
+    return np.clip((t + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def _nearest_index(src: int, dst: int) -> np.ndarray:

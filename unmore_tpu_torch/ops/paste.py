@@ -1,15 +1,18 @@
-"""Paste-back of crop-space masks for stage-2 scoring, on the host.
+"""Paste-back of crop-space masks for stage-2 scoring and the detector, on
+the host.
 
 ``csrc/paste.cpp`` (built by :mod:`~unmore_tpu_torch.ops.cuda_build` with
 ``g++`` at first use, bound here with ``ctypes``) gives the tight box, the
-area and the COCO RLE of a crop's union mask pasted into its image, from
-the paste geometry alone: no full-image canvas is materialized. A failed
-build raises; there is no silent fallback.
+area and the COCO RLE of a crop's union mask pasted into its image, and
+the RLE of a detector mask's probabilities pasted and thresholded, from the
+paste geometry alone: no full-image canvas is materialized. A failed build
+raises; there is no silent fallback.
 
-The plain versions, :func:`paste_stats_plain` and :func:`paste_rle_plain`,
-paste with :func:`~unmore_tpu_torch.ops.image.paste_mask_into_canvas` and
-encode with :mod:`unmore_tpu_torch.utils.rle`; only the tests and
-``chip_smoke.py`` use them.
+The plain versions, :func:`paste_stats_plain`, :func:`paste_rle_plain` and
+:func:`paste_prob_rle_plain`, paste with
+:func:`~unmore_tpu_torch.ops.image.paste_mask_into_canvas` and encode with
+:mod:`unmore_tpu_torch.utils.rle`; only the tests and ``chip_smoke.py`` use
+them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ def _load_library() -> ctypes.CDLL:
     lib.paste_support_stats.argtypes = [_u8p, _i64, _i64, _i64, _f32p, _i64, _i64, _f32p, _i64p]
     lib.paste_support_rle.restype = _i64
     lib.paste_support_rle.argtypes = [_u8p, _i64, _i64, _f32p, _i64, _i64, _i64p]
+    lib.paste_prob_rle.restype = _i64
+    lib.paste_prob_rle.argtypes = [_f32p, _i64, _i64, _f32p, _i64, _i64, ctypes.c_float, _i64p]
     return lib
 
 
@@ -86,6 +91,29 @@ def paste_rle(mask: np.ndarray, box: np.ndarray, h: int, w: int) -> dict:
     buf = ctypes.create_string_buffer(int(m) * 7 + 1)
     n = lib.rle_encode_counts(_ptr(runs, _i64p), m, buf)
     return {"size": [int(h), int(w)], "counts": buf.raw[:n].decode("ascii")}
+
+
+def paste_prob_rle(prob: np.ndarray, box: np.ndarray, h: int, w: int, thresh: float = 0.5) -> dict:
+    """COCO RLE of ``paste_mask_into_canvas(prob, box, (h, w)) > thresh``
+    for a crop-space probability mask [s, s] (the detector's masks), emitted
+    without a full canvas."""
+    prob = np.ascontiguousarray(prob, np.float32)
+    if prob.ndim != 2:
+        raise ValueError(f"prob must be [s, s], got {prob.shape}")
+    box = np.ascontiguousarray(np.asarray(box, np.float32).reshape(-1)[:4])
+    lib = _load_library()
+    runs = np.empty(h * w + 1, np.int64)
+    m = lib.paste_prob_rle(_ptr(prob, _f32p), prob.shape[0], prob.shape[1], _ptr(box, _f32p), h, w, thresh,
+                           _ptr(runs, _i64p))
+    buf = ctypes.create_string_buffer(int(m) * 7 + 1)
+    n = lib.rle_encode_counts(_ptr(runs, _i64p), m, buf)
+    return {"size": [int(h), int(w)], "counts": buf.raw[:n].decode("ascii")}
+
+
+def paste_prob_rle_plain(prob: np.ndarray, box: np.ndarray, h: int, w: int, thresh: float = 0.5) -> dict:
+    """:func:`paste_prob_rle` by pasting into a full canvas and encoding it."""
+    pasted = paste_mask_into_canvas(np.asarray(prob, np.float32), np.asarray(box, np.float32), (h, w))
+    return rle.encode((pasted > thresh).astype(np.uint8))
 
 
 def paste_stats_plain(masks: np.ndarray, boxes: np.ndarray, h: int, w: int):

@@ -5,9 +5,10 @@ JSON interoperates with the reference tooling: column-major runs starting
 with background, counts serialized as signed base-32 chars (offset 48)
 with second-order deltas from the third run on.
 
-The host library ``csrc/paste.cpp`` (:mod:`unmore_tpu_torch.ops.paste`)
-emits the same format from the paste geometry; this module is its plain
-version, and the tests decode segmentations with it.
+The host libraries ``csrc/paste.cpp`` (:mod:`unmore_tpu_torch.ops.paste`)
+and ``csrc/cocoeval.cpp`` (:mod:`unmore_tpu_torch.ops.cocoeval`) emit and
+read the same format; this module is their plain version, and the tests
+decode segmentations with it.
 """
 
 from __future__ import annotations
@@ -119,3 +120,20 @@ def to_bbox(rle: dict) -> list[float]:
     x0, x1 = xs.min(), xs.max()
     y0, y1 = ys.min(), ys.max()
     return [float(x0), float(y0), float(x1 - x0 + 1), float(y1 - y0 + 1)]
+
+
+def iou(rles_a: list[dict], rles_b: list[dict], iscrowd=None) -> np.ndarray:
+    """Mask IoU matrix [len(a), len(b)]; crowd columns use intersection/area_a."""
+    out = np.zeros((len(rles_a), len(rles_b)), np.float64)
+    masks_a = [decode(r).astype(bool) for r in rles_a]
+    masks_b = [decode(r).astype(bool) for r in rles_b]
+    for j, mb in enumerate(masks_b):
+        crowd = bool(iscrowd[j]) if iscrowd is not None else False
+        for i, ma in enumerate(masks_a):
+            inter = np.logical_and(ma, mb).sum()
+            if crowd:
+                denom = ma.sum()
+            else:
+                denom = ma.sum() + mb.sum() - inter
+            out[i, j] = inter / denom if denom > 0 else 0.0
+    return out
