@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in seven phases,
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in eight phases,
 each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
@@ -61,7 +61,25 @@ each printing one JSON line:
    matching and uint8 resize equal their plain versions; batched f32 calls
    equal per-image calls; an f32 narrow detector on the card agrees with
    the CPU. The path runs no kernel of ``csrc/*.cu`` (the JAX package's
-   detector reaches no Pallas kernel).
+   detector reaches no Pallas kernel);
+8. cad_train: CAD training through ``cli/train_net.py``'s ``train_detector``
+   at the YAML's full width (batch 16, canvas 1024, copy-paste, remat, SGD
+   with warmup and clipping, bf16 autocast over f32 weights, seeded random
+   weights) for 30 steps on 32 synthetic scenes made in memory, fed by 4
+   prefetch threads; checkpoints at steps 15 and 30, PreciseBN and the
+   in-train eval (phase 7's scenes) at 30: median synchronised step of steps
+   6-30 and on a fixed batch, img/s, FLOPs of a step (``FlopCounterMode``),
+   MFU, ``data_starved``, peak memory, losses, checkpoint bytes and seconds,
+   PreciseBN and eval seconds. Checks: every loss finite; the step-15
+   checkpoint reads back leaf for leaf; a trainer resumed from it runs step
+   16; a NaN step keeps parameters and statistics and moves step, count and
+   trace as optax does; on a narrow detector (trunk (1,1,1,1), canvas 256,
+   top-k 128, 32 RoIs), one f32 step on the card against the CPU replaying
+   the card's discrete decisions (losses 1e-4 relative, gradient 1e-3 of
+   its max-abs or twice the CPU's own f32-to-f64 distance, parameters 1e-6)
+   and remat on against off (equal statistics). The bf16 gradient against
+   the f32 one (same decisions) is reported. No kernel of ``csrc/*.cu`` runs
+   here either.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -70,6 +88,7 @@ line; without a CUDA device it exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -998,11 +1017,12 @@ def draw_shape(rng, h, w, min_frac, max_frac):
     return mask, rng.uniform(0.2, 1.0, size=3).astype(np.float32)
 
 
-def scene_world(seed, sizes=CAD_SCENES):
+def scene_world(seed, sizes=CAD_SCENES, shapes=(2, 7)):
     """Seeded multi-object scenes with exact GT, as ``make_synthetic_shapes.py``
-    ``gen_scenes`` makes them (textured background, 2-6 shapes of 12-35% of
-    the short side, at most 15% overlap, the later shape cut by the earlier):
-    (uint8 images, COCO GT dict with boxes, areas and RLE masks)."""
+    ``gen_scenes`` makes them (textured background, 2-6 shapes, or
+    ``range(*shapes)``, of 12-35% of the short side, at most 15% overlap, the
+    later shape cut by the earlier): (uint8 images, COCO GT dict with boxes,
+    areas and RLE masks)."""
     import numpy as np
 
     from unmore_tpu_torch.ops.labels import resize_linear
@@ -1017,7 +1037,7 @@ def scene_world(seed, sizes=CAD_SCENES):
         img += np.linspace(-0.05, 0.05, w, dtype=np.float32)[None, :, None]
         img = np.clip(img, 0.0, 1.0)
         occupied = np.zeros((h, w), bool)
-        for _ in range(int(rng.integers(2, 7))):
+        for _ in range(int(rng.integers(*shapes))):
             for _attempt in range(8):
                 mask, colour = draw_shape(rng, h, w, 0.12, 0.35)
                 if ((mask > 0) & occupied).sum() <= 0.15 * max(mask.sum(), 1):
@@ -1320,6 +1340,410 @@ def phase_cad(device, smi):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 8
+# CAD training at cad/configs/cascade_mask_rcnn_R_50_FPN.yaml as
+# build_from_config reads it (R50-FPN with remat, RPN top-k 2000/4000, 256
+# anchors and 512 RoIs an image, 3 cascade stages, masks, max_gt 128,
+# canvas 1024, MIN_SIZE_TRAIN 240-1024, copy-paste, batch 16, SGD 0.01 with
+# warmup 1000 and clip 1.0, bf16 autocast), cut in steps only
+CAD_TRAIN_CUTS = ("SOLVER.MAX_ITER", "30", "SOLVER.CHECKPOINT_PERIOD", "15", "TEST.EVAL_PERIOD", "30",
+                  "TEST.PRECISE_BN.NUM_ITER", "32")
+CAD_TRAIN_TIMED_FROM = 5  # the median step is of steps 6-30
+CAD_TRAIN_SIZES = ((480, 640), (640, 427), (375, 500), (800, 800), (427, 640), (500, 375), (612, 612), (333, 500))
+CAD_TRAIN_WORLD = 32  # scenes, a quarter of them ImageNet-like single objects
+CAD_TRAIN_WORKERS = 4  # the CLI's --train-workers default
+
+
+def cad_train_world(seed, n=CAD_TRAIN_WORLD):
+    """A training JSON in memory (``merge_coco_and_imagenet.py``'s shape:
+    ``coco_`` scenes of 2-6 shapes, ``imagenet_`` images of one shape, each
+    annotation with a pseudo-label score) and its images by file name."""
+    import numpy as np
+
+    n_single = n // 4
+    rng = np.random.default_rng(seed)
+    images, anns, files = [], [], {}
+    for prefix, count, shapes, s0 in (("coco", n - n_single, (2, 7), seed), ("imagenet", n_single, (1, 2), seed + 1)):
+        sizes = [CAD_TRAIN_SIZES[i % len(CAD_TRAIN_SIZES)] for i in range(count)]
+        pixels, gt = scene_world(s0, sizes, shapes)
+        for info, img in zip(gt["images"], pixels):
+            name = f"{prefix}/{info['id']}.jpg"
+            files[name] = img
+            images.append({"id": f"{prefix}_{info['id']}", "file_name": name, "height": info["height"],
+                           "width": info["width"]})
+        for a in gt["annotations"]:
+            anns.append(dict(a, id=len(anns) + 1, image_id=f"{prefix}_{a['image_id']}",
+                             score=float(rng.uniform(0.5, 1.0))))
+    return {"images": images, "annotations": anns}, files
+
+
+class MemoryImages:
+    """In-memory images with ``COCOImages``'s ``len`` and ``get``."""
+
+    def __init__(self, images, ids):
+        self.images, self.ids = images, ids
+
+    def __len__(self):
+        return len(self.images)
+
+    def get(self, idx, dtype=None):
+        return self.images[idx], self.ids[idx]
+
+
+def narrow_train_cfg():
+    """The f32 checks' detector: trunk blocks (1,1,1,1), canvas 256, RPN
+    top-k 128, 32 RoIs an image."""
+    import torch
+
+    from unmore_tpu_torch.detector.cascade_rcnn import DetectorConfig
+
+    return DetectorConfig(image_size=256, max_gt=16, gt_mask_res=32, stage_blocks=(1, 1, 1, 1),
+                          rpn_pre_nms_topk_train=128, rpn_post_nms_topk_train=128, rpn_pre_nms_topk_test=128,
+                          rpn_post_nms_topk_test=128, stage_samples=32, detections_per_image=16, dtype=torch.float32)
+
+
+def narrow_batch(train_json, files, cfg, seed=3):
+    """One wire-format batch of 2 images at the narrow config's canvas."""
+    from unmore_tpu_torch.cli import train_net
+    from unmore_tpu_torch.data.detection import DetectionDataset
+
+    solver = {"ims_per_batch": 2, "copy_paste": True, "copy_paste_rate": 1.0, "copy_paste_min_ratio": 0.3,
+              "copy_paste_max_ratio": 1.0, "copy_paste_random_num": True}
+    worker = train_net.batch_workers(
+        lambda s: DetectionDataset(train_json, {"": ""}, cfg.image_size, (160, 200, 256), s, read_image=files.get),
+        cfg, solver, 1)[0]
+    host = worker()
+    host.pop("n_gt_dropped")
+    return host
+
+
+DECISIONS = ("generate_proposals", "droploss_weights", "match_and_label")
+
+
+def _tree(x, fn):
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree(v, fn) for v in x)
+    return fn(x)
+
+
+@contextlib.contextmanager
+def decisions(record=None, replay=None, device=None):
+    """The training forward's discrete decisions (the RPN's proposals, the
+    DropLoss weights, the cascade stages' matches): appended to ``record``
+    as they are made, or taken from ``replay`` (moved to ``device``) in
+    place of being made. With random weights, near-equal scores and boxes
+    near an IoU threshold let two devices or precisions decide differently,
+    and one other RoI moves a loss by a percent; replaying one run's
+    decisions in the other compares their arithmetic alone."""
+    import unmore_tpu_torch.detector.cascade_rcnn as cascade
+
+    originals = {name: getattr(cascade, name) for name in DECISIONS}
+    used = dict.fromkeys(DECISIONS, 0)
+
+    def wrap(name):
+        def decide(*args, **kwargs):
+            if replay is not None:
+                used[name] += 1
+                return _tree(replay[name][used[name] - 1], lambda t: t.to(device))
+            out = originals[name](*args, **kwargs)
+            if record is not None:
+                record.setdefault(name, []).append(_tree(out, lambda t: t.detach().clone()))
+            return out
+        return decide
+
+    for name in DECISIONS:
+        setattr(cascade, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(cascade, name, fn)
+
+
+def narrow_step_checks(device, train_json, files):
+    """On the narrow detector with equal weights, batch and draws: one f32
+    step on the card (TF32 off) against the CPU replaying the card's
+    decisions (losses, flat gradient, parameters after the step; the
+    decisions that the CPU's own run makes otherwise are counted), the bf16
+    autocast gradient against the f32 one on the card (same decisions), and
+    remat on against off (BatchNorm statistics after one f32 step)."""
+    import dataclasses as dc
+
+    import torch
+
+    from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN, uniform_draws
+    from unmore_tpu_torch.train.detector import DetectorTrainer
+    from unmore_tpu_torch.train.objectness import to_device
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    cfg = narrow_train_cfg()
+    host = narrow_batch(train_json, files, cfg)
+    draws = uniform_draws(cfg, 2, torch.Generator().manual_seed(5), "cpu")
+    ref = CascadeMaskRCNN(cfg)
+    init_like_flax(ref, 3)
+    weights = ref.state_dict()
+
+    def step(dev, dtype="float32", remat=True, weights_dtype=torch.float32, **decide):
+        model = CascadeMaskRCNN(dc.replace(cfg, remat_backbone=remat))
+        model.load_state_dict(weights)
+        trainer = DetectorTrainer(model.to(dev, weights_dtype), cfg, {"warmup_iters": 1000}, dtype=dtype)
+        initial = trainer.stats.cpu().clone()
+        with decisions(device=dev, **decide):
+            losses = trainer.train_step(to_device(host, dev), {k: v.to(dev) for k, v in draws.items()})
+        return ({k: float(v) for k, v in losses.items()}, trainer.flat.grad.cpu().clone(), trainer.flat.data.cpu(),
+                trainer.stats.cpu(), initial)
+
+    on_card, on_cpu = {}, {}
+    card = step(device, record=on_card)
+    step(torch.device("cpu"), record=on_cpu)  # the CPU's own decisions, to count those that differ
+    cpu = step(torch.device("cpu"), replay=on_card)
+    cpu64 = step(torch.device("cpu"), replay=on_card, weights_dtype=torch.float64)
+    bf16, no_remat = step(device, "bfloat16", replay=on_card), step(device, remat=False)
+    g_scale = float(cpu64[1].abs().max())
+    (card_boxes, _, card_valid), (cpu_boxes, _, cpu_valid) = on_card["generate_proposals"][0], \
+        on_cpu["generate_proposals"][0]
+    differ = {
+        "proposal_slots": int(((card_boxes.cpu() - cpu_boxes).abs().amax(-1) > 1e-3).sum()
+                              + (card_valid.cpu() != cpu_valid).sum()),
+        "droploss_weights": sum(int((a.cpu() != b).sum()) for a, b in zip(on_card["droploss_weights"],
+                                                                          on_cpu["droploss_weights"])),
+        "cascade_fg": sum(int((a["fg"].cpu() != b["fg"]).sum()) for a, b in zip(on_card["match_and_label"],
+                                                                                 on_cpu["match_and_label"])),
+    }
+    return {
+        "config": {"image_size": 256, "stage_blocks": [1, 1, 1, 1], "rpn_topk_train": 128, "stage_samples": 32,
+                   "batch": 2},
+        "decisions_card_vs_cpu_differ": differ,
+        "losses_cpu_on_card_decisions": cpu[0], "losses_card": card[0],
+        "max_rel_loss_diff": max(abs(cpu[0][k] - card[0][k]) / max(abs(cpu[0][k]), 1e-12) for k in cpu[0]),
+        "grad_max_abs": g_scale, "max_abs_grad_diff_over_max_abs": float((cpu[1] - card[1]).abs().max()) / g_scale,
+        # how well posed an f32 gradient is here: both devices' distance to the f64 one
+        "cpu_f32_vs_f64_grad_over_max_abs": float((cpu[1] - cpu64[1]).abs().max()) / g_scale,
+        "card_f32_vs_f64_grad_over_max_abs": float((card[1] - cpu64[1]).abs().max()) / g_scale,
+        "max_abs_param_diff_after_step": float((cpu[2] - card[2]).abs().max()),
+        "bf16_vs_f32_grad_max_abs_diff_over_max_abs": float((bf16[1] - card[1]).abs().max()) / g_scale,
+        "bf16_vs_f32_grad_rel_l2": float((bf16[1] - card[1]).norm() / card[1].norm()),
+        "remat_on_vs_off_max_abs_stats_diff": float((card[3] - no_remat[3]).abs().max()),
+        "stats_moved_by_step": float((card[3] - card[4]).abs().max()),
+    }
+
+
+def full_width_bf16_vs_f32(trainer, batch):
+    """The gradient of one bf16 autocast step of the full-width detector on
+    2 of the batch's images against the f32 one (same draws, the bf16 run's
+    decisions replayed); the trainer's statistics and random key are
+    restored afterwards."""
+    import torch
+
+    two = {k: v[:2] for k, v in batch.items()}
+    stats, rng = trainer.stats.clone(), trainer.rng.copy()
+    draws = trainer.next_draws(2)
+    grads, made = [], {}
+    for bf16, decide in ((True, {"record": made}), (False, {"replay": made})):
+        trainer.bf16 = bf16
+        trainer.flat.grad.zero_()
+        with decisions(device=trainer.device, **decide):
+            trainer.loss(two, draws)["total"].backward()
+        grads.append(trainer.flat.grad.clone())
+    trainer.bf16 = True
+    trainer.flat.grad.zero_()
+    trainer.stats.copy_(stats)
+    trainer.rng = rng
+    scale = float(grads[1].abs().max())
+    out = {"images": 2, "f32_grad_max_abs": scale,
+           "max_abs_diff_over_max_abs": float((grads[0] - grads[1]).abs().max()) / scale,
+           "rel_l2": float((grads[0] - grads[1]).norm() / grads[1].norm())}
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def nan_guard_check(trainer, batch):
+    """A step fed a non-finite loss (NaN pseudo-label scores) keeps the
+    parameters and statistics and advances the step, the count and the trace
+    as optax does (zero gradient: trace = momentum * trace + wd * params)."""
+    import torch
+
+    opt = trainer.opt
+    before = {"params": trainer.flat.data.clone(), "stats": trainer.stats.clone(), "trace": opt.trace.clone(),
+              "count": int(opt.count), "step": int(trainer.step), "skipped": int(trainer.skipped)}
+    bad = dict(batch, gt_scores=torch.where(batch["gt_valid"], torch.full_like(batch["gt_scores"], float("nan")),
+                                            batch["gt_scores"]))
+    loss = float(trainer.train_step(bad)["total"])
+    want_trace = before["trace"] * opt.momentum + before["params"] * opt.weight_decay
+    trace_err = float((opt.trace - want_trace).abs().max())
+    out = {"loss": repr(loss), "params_kept": torch.equal(trainer.flat.data, before["params"]),
+           "stats_kept": torch.equal(trainer.stats, before["stats"]),
+           "step": [before["step"], int(trainer.step)], "count": [before["count"], int(opt.count)],
+           "skipped": [before["skipped"], int(trainer.skipped)], "trace_max_abs_err": trace_err,
+           "trace_max_abs": float(want_trace.abs().max())}
+    ok = (loss != loss or abs(loss) == float("inf")) and out["params_kept"] and out["stats_kept"] and \
+        out["step"][1] == out["step"][0] + 1 and out["count"][1] == out["count"][0] + 1 and \
+        out["skipped"][1] == out["skipped"][0] + 1 and trace_err <= 1e-6 * max(out["trace_max_abs"], 1e-30)
+    return out, ok
+
+
+def phase_cad_train(device, smi):
+    import shutil
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from unmore_tpu_torch.cli import train_net
+    from unmore_tpu_torch.data.detection import DetectionDataset
+    from unmore_tpu_torch.train.checkpoints import load_msgpack_checkpoint
+    from unmore_tpu_torch.train.objectness import to_device
+
+    problems = []
+    t0 = time.perf_counter()
+    train_json, files = cad_train_world(seed=1)
+    eval_images, eval_gt = scene_world(seed=0)
+    world_s = time.perf_counter() - t0
+    folder = Path("build") / "smoke_cad_train"
+    shutil.rmtree(folder, ignore_errors=True)
+    args = train_net.parse_args(["--config-file", CAD_CONFIG, *CAD_TRAIN_CUTS, "OUTPUT_DIR", str(folder / "run")])
+    det_cfg, solver, cfg_yaml = train_net.build_from_config(args)
+    solver = train_net.auto_scale_workers(solver, 1)
+    out_dir = solver["output_dir"]
+
+    def dataset(seed):
+        return DetectionDataset(train_json, {"": ""}, det_cfg.image_size, solver["min_sizes"], seed,
+                                read_image=files.get)
+
+    eval_s = []
+
+    def evaluate(model, tag, verify):
+        t = time.perf_counter()
+        metrics = train_net.run_eval(model, det_cfg, cfg_yaml, out_dir, tag,
+                                     MemoryImages(eval_images, [im["id"] for im in eval_gt["images"]]), eval_gt,
+                                     device, 4, 2, verify)
+        eval_s.append(time.perf_counter() - t)
+        return metrics
+
+    trainer = train_net.make_trainer(det_cfg, solver, device, "bfloat16")
+    # FLOPs of one step (and the warm-up of cuDNN and the allocator) on a
+    # batch of its own; the statistics and the random key are restored
+    flop_batch = to_device({k: v for k, v in train_net.batch_workers(dataset, det_cfg, solver, 1)[0]().items()
+                            if k != "n_gt_dropped"}, device)
+    stats, rng = trainer.stats.clone(), trainer.rng.copy()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        trainer.loss(flop_batch)["total"].backward()
+    flops = counter.get_total_flops()
+    trainer.flat.grad.zero_()
+    trainer.stats.copy_(stats)
+    trainer.rng = rng
+    sync(device)
+    peak_bytes(device, reset=True)
+
+    step_s, losses, state15, last = [], {}, {}, [time.perf_counter()]
+
+    def on_step(step_no, out):
+        sync(device)
+        now = time.perf_counter()
+        step_s.append(now - last[0])
+        losses[step_no] = {k: float(v) for k, v in out.items()}
+        if step_no == 15:
+            state15["tree"] = trainer.state_tree()
+        last[0] = time.perf_counter()
+
+    summary = train_net.train_detector(trainer, solver, out_dir,
+                                       train_net.batch_workers(dataset, det_cfg, solver, CAD_TRAIN_WORKERS), evaluate,
+                                       on_step=on_step)
+    peak = peak_bytes(device)
+    step_ms = statistics.median(step_s[CAD_TRAIN_TIMED_FROM:]) * 1e3
+    skipped = int(trainer.skipped)
+
+    if not all(v == v and abs(v) != float("inf") for step in losses.values() for v in step.values()):
+        problems.append("a non-finite training loss")
+    if not all(v == v for line in summary["logs"] for v in line.values()):
+        problems.append(f"a non-finite logged loss {summary['logs']}")
+    names = [Path(c["path"]).name for c in summary["checkpoints"]]
+    if names != ["model_0000015.ckpt", "model_0000030.ckpt"] or not all(Path(c["path"]).is_file()
+                                                                        for c in summary["checkpoints"]):
+        problems.append(f"checkpoints {names}")
+    t = time.perf_counter()
+    bad = same_tree(load_msgpack_checkpoint(str(Path(out_dir) / "model_0000015.ckpt")), state15["tree"])
+    read_s = time.perf_counter() - t
+    if bad:
+        problems.append(f"the step-15 checkpoint reads back other than the state saved, at {bad[:5]}")
+    if not summary["evals"]:
+        problems.append("no in-train evaluation")
+
+    fixed = to_device({k: v for k, v in train_net.batch_workers(dataset, det_cfg, solver, 1)[0]().items()
+                       if k != "n_gt_dropped"}, device)
+    fixed_s = []
+    for _ in range(4):
+        sync(device)
+        t = time.perf_counter()
+        trainer.train_step(fixed)
+        sync(device)
+        fixed_s.append(time.perf_counter() - t)
+    bf16_vs_f32 = full_width_bf16_vs_f32(trainer, fixed)
+    guard, ok = nan_guard_check(trainer, fixed)
+    if not ok:
+        problems.append(f"NaN guard: {guard}")
+    del trainer, flop_batch, fixed
+    torch.cuda.empty_cache()
+
+    # a fresh trainer resumed from the step-15 checkpoint runs step 16
+    resumed = train_net.make_trainer(det_cfg, solver, device, "bfloat16")
+    train_net.load_training_state(resumed, str(Path(out_dir) / "model_0000015.ckpt"))
+    first_step = int(resumed.step)
+    again = train_net.train_detector(resumed, dict(solver, max_iter=16, eval_period=0), str(folder / "resumed"),
+                                     train_net.batch_workers(dataset, det_cfg, solver, 1))
+    resume = {"loaded_step": first_step, "step_after": int(resumed.step),
+              "checkpoints": [Path(c["path"]).name for c in again["checkpoints"]]}
+    if first_step != 15 or resume["step_after"] != 16 or resume["checkpoints"] != ["model_0000016.ckpt"]:
+        problems.append(f"resume from the step-15 checkpoint: {resume}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    narrow = narrow_step_checks(device, train_json, files)
+    # the gradient within 1e-3 of its max-abs, or, where f32 itself is that
+    # far from f64 on the CPU, no more than twice the CPU's own distance
+    grad_tol = max(1e-3, 2 * narrow["cpu_f32_vs_f64_grad_over_max_abs"])
+    if not (narrow["max_rel_loss_diff"] <= 1e-4 and narrow["max_abs_grad_diff_over_max_abs"] <= grad_tol
+            and narrow["max_abs_param_diff_after_step"] <= 1e-6):
+        problems.append(f"f32 card and CPU training steps differ: {narrow}")
+    if not (narrow["remat_on_vs_off_max_abs_stats_diff"] <= 1e-6 and narrow["stats_moved_by_step"] > 0):
+        problems.append(f"remat changes the BatchNorm statistics: {narrow['remat_on_vs_off_max_abs_stats_diff']}")
+
+    first, last_step = min(losses), max(losses)
+    emit({
+        "phase": "cad_train", "nvidia_smi": smi, "config": CAD_CONFIG,
+        "model": "cascade mask r-cnn r50-fpn, seeded random weights (init_like_flax), f32 master weights, "
+                 "bf16 autocast",
+        "detector_config": {k: str(v) if k == "dtype" else v for k, v in dataclasses.asdict(det_cfg).items()},
+        "solver": {k: v for k, v in solver.items() if k != "weights"},
+        "cuts": {"MAX_ITER": "30000 -> 30", "CHECKPOINT_PERIOD": "1000 -> 15", "EVAL_PERIOD": "0 -> 30",
+                 "PRECISE_BN.NUM_ITER": "200 -> 32",
+                 "data": f"{CAD_TRAIN_WORLD} synthetic scenes in memory, "
+                         f"{CAD_TRAIN_WORLD // 4} of them imagenet_ single objects",
+                 "eval": "the 4 synthetic scenes of phase cad"},
+        "world": {"images": len(train_json["images"]), "annotations": len(train_json["annotations"]),
+                  "make_s": world_s},
+        "steps": len(step_s), "step_ms_median_6_30": step_ms, "img_per_s": solver["ims_per_batch"] / step_ms * 1e3,
+        "step_ms": [x * 1e3 for x in step_s], "fixed_batch_step_ms": [x * 1e3 for x in fixed_s],
+        "tflop_per_step": flops / 1e12, "gflop_per_image": flops / solver["ims_per_batch"] / 1e9,
+        "mfu_vs_989_tflops_bf16": flops / (step_ms / 1e3) / H100_BF16_FLOPS,
+        "data_starved": summary["data_starved"], "max_memory_allocated_bytes": peak,
+        "losses_first_step": losses[first], "losses_last_step": losses[last_step], "logs": summary["logs"],
+        "nonfinite_steps_skipped": skipped, "checkpoints": summary["checkpoints"], "checkpoint_read_s": read_s,
+        "precise_bn_s": summary["precise_bn_s"], "eval_s": eval_s,
+        "eval_img_per_s": [len(eval_images) / x for x in eval_s], "eval_metrics": summary["evals"],
+        "resume": resume, "nan_guard": guard, "bf16_vs_f32_full_width": bf16_vs_f32, "narrow_checks": narrow,
+        "kernels_on_path": [], "checks_failed": problems,
+    })
+    if problems:
+        fail(f"cad_train phase: {problems[:5]}")
+    shutil.rmtree(folder)  # three checkpoints of ~0.6 GB
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -1358,6 +1782,7 @@ def main():
     torch.cuda.empty_cache()
     phase_train(device)
     phase_cad(device, smi)
+    phase_cad_train(device, smi)
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{

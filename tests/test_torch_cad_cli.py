@@ -20,13 +20,15 @@ import yaml
 import jax
 import jax.numpy as jnp
 
-from tests.test_cad_cli import TINY_YAML, _load_cli
+from tests.test_cad_cli import TINY_YAML, _load_cli, _tiny_dataset
 from unmore_tpu.detector.cascade_rcnn import CascadeMaskRCNN as JaxDetector
 from unmore_tpu.train.checkpoints import save_checkpoint
 from unmore_tpu.train.detector import init_detector_state, make_detector_optimizer
 from unmore_tpu_torch.cli import train_net
 from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN, detector_forward_inference
 from unmore_tpu_torch.ops.image import paste_mask_into_canvas
+from unmore_tpu_torch.train import checkpoints
+from unmore_tpu_torch.train.resilience import FATAL_EXIT_CODE
 from unmore_tpu_torch.utils import rle
 
 
@@ -176,7 +178,8 @@ def test_verify_results_semantics():
 
 
 def test_training_is_refused_and_restarts_resume(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A8c"):
+    # training needs its annotations
+    with pytest.raises(AssertionError, match="--train-json"):
         train_net.main(["--device", "cpu", "--config-file", "x.yaml"])
     seen = {}
 
@@ -192,3 +195,78 @@ def test_training_is_refused_and_restarts_resume(monkeypatch):
                                  "MODEL.WEIGHTS", "w"]
     assert seen["retry"][-3:] == ["--resume", "MODEL.WEIGHTS", "w"]
     assert seen["max_restarts"] == 2 and seen["hang_timeout"] == 60
+
+
+def test_train_resume_with_eval_and_precise_bn_then_eval_only(tmp_path):
+    """``tests/test_cad_cli.py``'s drill through the port's CLI on the CPU:
+    2 steps with a checkpoint; ``--resume`` to 4 with the in-train eval
+    after PreciseBN; ``--eval-only`` on the result."""
+    img_dir, json_path = _tiny_dataset(str(tmp_path))
+    out_dir = str(tmp_path / "out")
+    cfg_path = str(tmp_path / "tiny.yaml")
+
+    def run(max_iter, eval_period, *flags):
+        with open(cfg_path, "w") as f:
+            f.write(TINY_YAML.format(max_iter=max_iter, eval_period=eval_period, out_dir=out_dir))
+        return train_net.main(["--config-file", cfg_path, "--canvas-size", "64", "--dtype", "float32", "--eval-bs", "8",
+                               "--device", "cpu", "--train-workers", "2", "--train-json", json_path,
+                               "--image-root", f"={img_dir}", "--test-json", json_path, "--test-image-dir", img_dir,
+                               *flags, "SOLVER.IMS_PER_BATCH", "2"])
+
+    first = run(2, 0)
+    assert [os.path.basename(c["path"]) for c in first["checkpoints"]] == ["model_0000002.ckpt"]
+    assert first["checkpoints"][0]["bytes"] == os.path.getsize(first["checkpoints"][0]["path"])
+    second = run(4, 4, "--resume")
+    ckpt = os.path.join(out_dir, "model_0000004.ckpt")
+    assert [c["path"] for c in second["checkpoints"]] == [ckpt]
+    assert os.path.isfile(os.path.join(out_dir, "model_0000002.ckpt"))
+    tree = checkpoints.load_msgpack_checkpoint(ckpt)  # resumed at 2, not restarted: 4 steps, 4 updates
+    assert int(tree["step"]) == 4 and int(tree["opt_state"]["2"]["1"]["count"]) == 4
+    assert len(second["precise_bn_s"]) == 1 and list(second["evals"]) == ["iter_0000004"]
+    m = _read(out_dir, "metrics_iter_0000004.json")
+    assert "AP" in m["bbox"] and "AP" in m["segm"]
+    train_net.main(["--config-file", cfg_path, "--canvas-size", "64", "--dtype", "float32", "--eval-bs", "8",
+                    "--device", "cpu", "--eval-only", "--test-json", json_path, "--test-image-dir", img_dir,
+                    "MODEL.WEIGHTS", ckpt, "TEST.EXPECTED_RESULTS", "[['bbox', 'AP', 50.0, 50.0]]"])
+    assert _read(out_dir, "metrics_eval_only.json").keys() == {"bbox", "segm"}
+
+
+class _StubTrainer:
+    """The trainer surface :func:`train_net.train_detector` drives, with a
+    scripted total loss a step and no model."""
+
+    def __init__(self, totals):
+        self.totals, self.step, self.device = totals, torch.zeros((), dtype=torch.int32), torch.device("cpu")
+
+    def train_step(self, batch):
+        self.step += 1
+        return {"loss_a": torch.tensor(1.0), "total": torch.tensor(self.totals(int(self.step)))}
+
+    def checkpoint_tensors(self):
+        return {"step": self.step}
+
+    def checkpoint_tree(self, host):
+        return {"step": np.asarray(host["step"], np.int32)}
+
+
+def test_training_loop_logs_checkpoints_and_fails_fast(tmp_path):
+    """Windows of 20 steps: a loss of 5000 under warmup (30 steps) passes,
+    after it counts as corrupt; the checkpoints at 40 and 50 are skipped,
+    and the second corrupt window (60) exits with code 3 without saving."""
+    solver = {"max_iter": 100, "ims_per_batch": 2, "warmup_iters": 30, "checkpoint_period": 10, "eval_period": 0,
+              "precise_bn": False, "precise_bn_iters": 0}
+    out = str(tmp_path / "out")
+    with pytest.raises(SystemExit) as exit_info:
+        train_net.train_detector(_StubTrainer(lambda s: 5000.0), solver, out, [lambda: {"x": np.zeros(1)}])
+    assert exit_info.value.code == FATAL_EXIT_CODE
+    assert sorted(f for f in os.listdir(out) if f.endswith(".ckpt")) == [
+        "model_0000010.ckpt", "model_0000020.ckpt", "model_0000030.ckpt"]
+    with open(os.path.join(out, "metrics.json")) as f:
+        lines = [json.loads(x) for x in f]
+    assert [x["iteration"] for x in lines] == [20, 40] and lines[0]["total"] == 5000.0
+    assert {"loss_a", "total", "ips", "data_starved"} <= lines[0].keys()
+    assert any(f.startswith("events.out.tfevents") for f in os.listdir(os.path.join(out, "tb")))
+    summary = train_net.train_detector(_StubTrainer(lambda s: 0.5), dict(solver, max_iter=25), str(tmp_path / "ok"),
+                                       [lambda: {"x": np.zeros(1)}])
+    assert [os.path.basename(c["path"]) for c in summary["checkpoints"]] == [
+        "model_0000010.ckpt", "model_0000020.ckpt", "model_0000025.ckpt"]

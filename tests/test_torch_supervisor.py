@@ -41,6 +41,22 @@ def test_strip_flag_spellings_and_module_child():
                                                               "--c", "2"]
 
 
+def test_loss_window_corrupt_warmup_exemption():
+    from unmore_tpu_torch.train.resilience import CorruptionDetector
+
+    d = CorruptionDetector()
+    # a large finite loss under LR warmup does not count; after warmup it does
+    assert not d.loss_window_corrupt(5300.0, in_warmup=True)
+    assert d.loss_window_corrupt(5300.0, in_warmup=False)
+    assert d.loss_window_corrupt(5300.0)  # the stage-1 CLI's call: no warmup exemption
+    # non-finite counts even during warmup
+    assert d.loss_window_corrupt(float("nan"), in_warmup=True)
+    assert d.loss_window_corrupt(float("inf"), in_warmup=True)
+    # the ceiling is configurable (--corrupt-loss-ceiling)
+    assert d.loss_window_corrupt(200.0, ceiling=100.0)
+    assert not d.loss_window_corrupt(200.0, ceiling=1e4)
+
+
 def test_supervise_restarts_until_success(tmp_path):
     marker, log = str(tmp_path / "marker"), str(tmp_path / "attempts.txt")
     # fails with the fail-fast code once, then succeeds

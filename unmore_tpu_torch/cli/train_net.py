@@ -1,26 +1,41 @@
-"""CAD detector evaluation CLI on one CUDA device (port of ``cad/train_net.py``).
+"""CAD detector training and evaluation CLI on one CUDA device (port of
+``cad/train_net.py``).
 
+    python -m unmore_tpu_torch.cli.train_net \\
+        --config-file cad/configs/cascade_mask_rcnn_R_50_FPN.yaml \\
+        --train-json selected_training_annotations.json \\
+        --image-root coco=/data/train2017 --image-root imagenet=/data/imagenet/train \\
+        --test-json instances_val2017.json --test-image-dir /data/val2017 [--resume]
     python -m unmore_tpu_torch.cli.train_net --eval-only \\
         --config-file cad/configs/cascade_mask_rcnn_R_50_FPN.yaml \\
         --test-json instances.json --test-image-dir images MODEL.WEIGHTS model_0030000.ckpt
 
 The JAX CLI's flags, YAML configs (``_BASE_`` inheritance, dotted ``opts``)
 and files: ``OUTPUT_DIR/config.yaml`` (JSON text, which YAML readers
-read), ``coco_instances_results.json``, ``metrics_eval_only.json``, and the
-``TEST.EXPECTED_RESULTS`` gate. ``MODEL.WEIGHTS`` (or ``--resume``, the
-newest ``model_NNNNNNN.ckpt`` in ``OUTPUT_DIR``) takes the JAX trainer's
-msgpack ``TrainState`` (its ``params`` and ``batch_stats``) or a state dict
-of this port; without one the detector gets random weights from seed 0.
-Images are evaluated ``--eval-bs`` at a time (4 by default), the last batch
-padded with blank images, decoded on ``--eval-workers`` threads while the
-device runs. ``--max-restarts N`` relaunches the run as a
-supervised child. Training is not ported yet (``ROADMAP.md`` A8c): without
-``--eval-only`` the CLI raises.
+read), ``metrics.json`` (a line every 20 steps), TensorBoard scalars under
+``tb/``, ``model_NNNNNNN.ckpt`` every ``SOLVER.CHECKPOINT_PERIOD`` steps and
+at ``MAX_ITER`` (the JAX package's msgpack ``DetectorTrainState``, which
+either package resumes), ``coco_instances_results.json`` and
+``metrics_<tag>.json`` of each evaluation (every ``TEST.EVAL_PERIOD`` steps,
+after PreciseBN when ``TEST.PRECISE_BN.ENABLED``; ``TEST.EXPECTED_RESULTS``
+gates only the last one and ``--eval-only``). Training keeps f32 master
+weights and runs the forward under bf16 autocast (``--dtype bfloat16``);
+the batches come from ``--train-workers`` prefetch threads.
+``MODEL.WEIGHTS`` (or ``--resume``, the newest checkpoint in
+``OUTPUT_DIR``) takes a JAX or port checkpoint; a whole training state
+resumes as it was, weights alone (or a state dict of this port) start a
+fresh run from them; without one the detector gets random weights from
+seed 0. Images are evaluated ``--eval-bs`` at a time (4 by default), the
+last batch padded with blank images, decoded on ``--eval-workers`` threads
+while the device runs. ``--max-restarts N`` relaunches the run as a
+supervised child (with ``--resume``); a run whose loss windows look corrupt
+twice in a row exits with code 3 without saving.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -57,7 +72,9 @@ def parse_args(argv=None):
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--eval-bs", type=int, default=0, help="eval inference batch (0 = auto: 4 on one device)")
     p.add_argument("--eval-workers", type=int, default=2, help="image-decode threads overlapping the device")
-    p.add_argument("--train-workers", type=int, default=4, help=IGNORED + " (training is not ported)")
+    p.add_argument("--train-workers", type=int, default=4,
+                   help="training prefetch threads (decode + copy-paste); raise on many-core hosts if data_starved "
+                        "grows")
     p.add_argument("--max-restarts", type=int, default=0,
                    help="supervise the run: relaunch it (with --resume) up to N times after a crash, a kill "
                         "or --hang-timeout-min of output silence")
@@ -66,7 +83,8 @@ def parse_args(argv=None):
                         "minutes (0: never)")
     p.add_argument("--busy-hang-timeout-min", type=float, default=15.0,
                    help=IGNORED + " (the busy-wedge watchdog of the TPU build)")
-    p.add_argument("--corrupt-loss-ceiling", type=float, default=1e3, help=IGNORED + " (training is not ported)")
+    p.add_argument("--corrupt-loss-ceiling", type=float, default=1e3,
+                   help="a finite loss above this (after warmup) counts as a corrupt log window")
     p.add_argument("--device", type=str, default=None, help="torch device (default cuda); 'cpu' runs on the CPU")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
@@ -74,8 +92,7 @@ def parse_args(argv=None):
 
 def build_from_config(args):
     """(DetectorConfig, solver dict, the YAML config dict), as the JAX CLI
-    builds them from ``--config-file`` and ``opts`` (the detector's training
-    fields wait for training, ``ROADMAP.md`` A8c)."""
+    builds them from ``--config-file`` and ``opts``."""
     import torch
 
     from unmore_tpu_torch.detector.cascade_rcnn import DetectorConfig
@@ -89,10 +106,19 @@ def build_from_config(args):
     det_cfg = DetectorConfig(
         num_classes=get(cfg_yaml, "MODEL.ROI_HEADS.NUM_CLASSES", 1),
         image_size=args.canvas_size,
+        max_gt=get(cfg_yaml, "INPUT.MAX_GT", 128),
+        gt_mask_res=get(cfg_yaml, "INPUT.GT_MASK_RES", 128),
         stage_blocks=tuple(get(cfg_yaml, "MODEL.RESNETS.STAGE_BLOCKS", (3, 4, 6, 3))),
+        stage_samples=get(cfg_yaml, "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 512),
+        rpn_pre_nms_topk_train=get(cfg_yaml, "MODEL.RPN.PRE_NMS_TOPK_TRAIN", 2000),
         rpn_pre_nms_topk_test=get(cfg_yaml, "MODEL.RPN.PRE_NMS_TOPK_TEST", 1000),
         rpn_post_nms_topk_test=get(cfg_yaml, "MODEL.RPN.POST_NMS_TOPK_TEST", 1000),
+        rpn_post_nms_topk_train=get(cfg_yaml, "MODEL.RPN.POST_NMS_TOPK_TRAIN", 4000),
         rpn_nms_thresh=get(cfg_yaml, "MODEL.RPN.NMS_THRESH", 0.65),
+        use_droploss=get(cfg_yaml, "MODEL.ROI_HEADS.USE_DROPLOSS", True),
+        droploss_iou_thresh=get(cfg_yaml, "MODEL.ROI_HEADS.DROPLOSS_IOU_THRESH", 0.01),
+        use_soft_targets=get(cfg_yaml, "MODEL.ROI_HEADS.USE_SOFT_TARGETS", True),
+        positive_fraction=get(cfg_yaml, "MODEL.ROI_HEADS.POSITIVE_FRACTION", 0.25),
         mask_on=get(cfg_yaml, "MODEL.MASK_ON", True) and not args.no_segm,
         test_score_thresh=get(cfg_yaml, "MODEL.ROI_HEADS.SCORE_THRESH_TEST", 0.0),
         detections_per_image=get(cfg_yaml, "TEST.DETECTIONS_PER_IMAGE", 100),
@@ -215,70 +241,28 @@ def _supervised(args, argv) -> int:
     return supervisor.supervise(build, args.max_restarts, hang_timeout=args.hang_timeout_min * 60 or None)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    if args.max_restarts > 0:
-        sys.exit(_supervised(args, argv))
-    if not args.eval_only:
-        raise NotImplementedError(
-            "CAD training is not ported yet (ROADMAP.md A8c); this CLI runs --eval-only")
-
-    import torch
-
-    from unmore_tpu_torch import resolve_device
-    from unmore_tpu_torch.cli.common import NpEncoder
-    from unmore_tpu_torch.data.coco import COCOImages
-    from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
-    from unmore_tpu_torch.detector.config_yaml import dump_yaml
-    from unmore_tpu_torch.detector.evaluation import DetectorEvaluator
-    from unmore_tpu_torch.evaluation.coco_eval import evaluate_ap
-    from unmore_tpu_torch.train.optim import init_like_flax
-
-    device = resolve_device(args.device)
-    # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    det_cfg, solver, cfg_yaml = build_from_config(args)
-    solver = auto_scale_workers(solver, 1)
-    out_dir = solver["output_dir"]
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
-        f.write(dump_yaml(cfg_yaml) + "\n")
-
-    model = CascadeMaskRCNN(det_cfg)
-    init_like_flax(model, 0)
-    weights = find_last_checkpoint(out_dir) if args.resume else None
-    if weights:
-        print(f"resumed from {weights}")
-    elif solver["weights"] and os.path.isfile(str(solver["weights"])):
-        weights = solver["weights"]
-        print(f"loaded weights from {weights}")
-    if weights:
-        load_detector_weights(model, weights)
-    model = model.to(device, det_cfg.dtype).eval()
-
-    if args.test_dataset and args.data_root:
-        from unmore_tpu_torch.data.registry import resolve_dataset
-
-        test_image_dir, test_json = resolve_dataset(args.test_dataset, args.data_root)
-    else:
-        test_image_dir, test_json = args.test_image_dir, args.test_json
-    assert test_json and test_image_dir, "--test-json/--test-image-dir (or --test-dataset with --data-root) required"
-
-    evaluator = DetectorEvaluator(model, det_cfg, device=device)
-    dataset = COCOImages(test_image_dir, test_json)
-    n = len(dataset)
-    print(f"* eval[eval_only]: {n} images on {device}", flush=True)
+def run_eval(model, det_cfg, cfg_yaml, out_dir: str, tag: str, dataset, test_json, device, eval_bs: int = 4,
+             eval_workers: int = 2, verify: bool = False, tasks=("bbox", "segm")) -> dict:
+    """Evaluate ``model`` (eval mode, in ``det_cfg.dtype``) on ``dataset``
+    (``len`` and ``get(i, dtype)`` -> (image, id), as ``COCOImages``) against
+    ``test_json`` (a path or the GT dict): writes
+    ``coco_instances_results.json`` and ``metrics_<tag>.json`` into
+    ``out_dir``; ``verify`` applies ``TEST.EXPECTED_RESULTS``."""
     from concurrent.futures import ThreadPoolExecutor
 
-    eval_bs = args.eval_bs if args.eval_bs > 0 else 4
+    from unmore_tpu_torch.cli.common import NpEncoder
+    from unmore_tpu_torch.detector.evaluation import DetectorEvaluator
+    from unmore_tpu_torch.evaluation.coco_eval import evaluate_ap
+
+    evaluator = DetectorEvaluator(model, det_cfg, device=device)
+    n = len(dataset)
+    print(f"* eval[{tag}]: {n} images on {device}", flush=True)
     # the last batch is padded with blank images under a sentinel id, whose
     # predictions are dropped: every call has the same batch shape
     pad = (np.zeros((8, 8, 3), np.float32), -1)
     preds = []
     t0 = time.time()
-    with ThreadPoolExecutor(max(args.eval_workers, 1)) as decode_pool, ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(max(eval_workers, 1)) as decode_pool, ThreadPoolExecutor(1) as pool:
 
         def load_chunk(c0):
             chunk = list(decode_pool.map(lambda i: dataset.get(i, dtype=np.uint8), range(c0, min(c0 + eval_bs, n))))
@@ -296,13 +280,259 @@ def main(argv=None):
 
     with open(os.path.join(out_dir, "coco_instances_results.json"), "w") as f:
         json.dump(preds, f, cls=NpEncoder)
-    tasks = ("bbox",) if args.no_segm or not det_cfg.mask_on else ("bbox", "segm")
     metrics = evaluate_ap(test_json, preds, iou_types=tasks)
-    with open(os.path.join(out_dir, "metrics_eval_only.json"), "w") as f:
+    with open(os.path.join(out_dir, f"metrics_{tag}.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     print(json.dumps(metrics, indent=2))
-    verify_results(cfg_yaml, metrics)
+    if verify:
+        verify_results(cfg_yaml, metrics)
     return metrics
+
+
+def batch_workers(dataset_fn, det_cfg, solver: dict, n_workers: int) -> list:
+    """``n_workers`` prefetch worker functions, worker ``w`` owning the
+    dataset ``dataset_fn(seed)`` and a numpy generator of seed ``1000 + w``
+    (the JAX CLI's seeds), each returning one wire-format batch of
+    ``ims_per_batch`` images a call."""
+    from unmore_tpu_torch.data.detection import detection_batch_iterator
+
+    def worker(seed):
+        it = detection_batch_iterator(
+            dataset_fn(seed), solver["ims_per_batch"], det_cfg.max_gt, det_cfg.gt_mask_res,
+            np.random.default_rng(seed), copy_paste=solver["copy_paste"], rate=solver["copy_paste_rate"],
+            min_ratio=solver["copy_paste_min_ratio"], max_ratio=solver["copy_paste_max_ratio"],
+            random_num=solver["copy_paste_random_num"])
+        return lambda: next(it)
+
+    return [worker(1000 + w) for w in range(max(n_workers, 1))]
+
+
+def make_trainer(det_cfg, solver: dict, device, dtype: str = "bfloat16", seed: int = 0):
+    """A :class:`~unmore_tpu_torch.train.detector.DetectorTrainer` of the
+    config's detector with f32 master weights (random, from ``seed``) on
+    ``device`` and the solver's SGD."""
+    import torch
+
+    from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
+    from unmore_tpu_torch.train.detector import DetectorTrainer
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    model = CascadeMaskRCNN(dataclasses.replace(det_cfg, dtype=torch.float32))
+    init_like_flax(model, seed)
+    optim = {k: solver[k] for k in ("base_lr", "weight_decay", "warmup_iters", "steps", "gamma", "clip_norm")}
+    return DetectorTrainer(model.to(device), det_cfg, optim, dtype=dtype)
+
+
+def load_training_state(trainer, path: str):
+    """A whole ``DetectorTrainState`` (either package's) into ``trainer``;
+    weights alone (a tree without ``opt_state``, or a port state dict) into
+    its model."""
+    from unmore_tpu_torch.train.checkpoints import try_msgpack_checkpoint
+
+    tree = try_msgpack_checkpoint(path)
+    if tree is not None and "opt_state" in tree:
+        trainer.load_tree(tree)
+    else:
+        load_detector_weights(trainer.model, path)
+
+
+def eval_model_of(trainer, stats: dict | None = None):
+    """A copy of the trainer's detector for evaluation: eval mode, in the
+    config's dtype, with ``stats`` (buffer name -> tensor, PreciseBN's) in
+    place of its BatchNorm statistics."""
+    from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
+
+    model = CascadeMaskRCNN(trainer.cfg)
+    model.load_state_dict(trainer.model.state_dict())
+    if stats:
+        model.load_state_dict(stats, strict=False)
+    return model.to(trainer.device, trainer.cfg.dtype).eval()
+
+
+def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=None, corrupt_loss_ceiling: float = 1e3,
+                   on_step=None) -> dict:
+    """The CAD training loop of ``cad/train_net.py`` from the trainer's step
+    to ``solver["max_iter"]``, fed by ``workers`` (:func:`batch_workers`)
+    on prefetch threads.
+
+    Every 20 steps: the losses (4 decimals), ``iteration``, ``ips`` and
+    ``data_starved`` as a ``metrics.json`` line and TensorBoard scalars, and
+    the corruption check (a non-finite total, or one above
+    ``corrupt_loss_ceiling`` after warmup; twice in a row exits with
+    ``FATAL_EXIT_CODE`` without saving). Checkpoints (async) every
+    ``checkpoint_period`` steps and at ``max_iter``, unless the last window
+    looked corrupt. Every ``eval_period`` steps and at ``max_iter``:
+    PreciseBN over ``max(1, precise_bn_iters // ims_per_batch)`` fresh
+    batches when enabled, then ``eval_fn(model, tag, verify)`` on a copy of
+    the detector with those statistics (``verify`` at ``max_iter`` only).
+    ``on_step(step_no, losses)`` runs after each step's launch (no sync
+    here). Returns the logged lines, the checkpoints written (path, bytes,
+    seconds), the PreciseBN seconds, the evaluations' metrics and
+    ``data_starved``."""
+    import torch
+
+    from unmore_tpu_torch.data.prefetch import PrefetchIterator
+    from unmore_tpu_torch.detector.cascade_rcnn import normalize
+    from unmore_tpu_torch.train.checkpoints import AsyncCheckpointer
+    from unmore_tpu_torch.train.objectness import to_device
+    from unmore_tpu_torch.train.precise_bn import precise_bn_stats
+    from unmore_tpu_torch.train.resilience import (
+        FATAL_EXIT_CODE, CorruptionDetector, fault_injection_active, mark_fault_injected,
+    )
+    from unmore_tpu_torch.utils.tensorboard import EventWriter
+
+    os.makedirs(out_dir, exist_ok=True)
+    it = PrefetchIterator(worker_fns=workers)
+
+    def next_batch():
+        host = next(it)
+        host.pop("n_gt_dropped", None)
+        return to_device(host, trainer.device)
+
+    def precise_bn():
+        n_bn = max(1, solver["precise_bn_iters"] // max(solver["ims_per_batch"], 1))
+        print(f"* precise_bn: {n_bn} stat batches", flush=True)
+        t0 = time.perf_counter()
+
+        def forward(batch):
+            with trainer.autocast():
+                trainer.model.backbone.trunk(normalize(batch["images"]))
+
+        stats = precise_bn_stats(trainer.model, forward, (next_batch() for _ in range(n_bn)))
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        summary["precise_bn_s"].append(time.perf_counter() - t0)
+        return stats
+
+    def drain():
+        """Wait for the checkpoint write in flight; record its path, bytes and seconds."""
+        done = writer.wait()
+        if done and not any(c["path"] == done["path"] for c in summary["checkpoints"]):
+            summary["checkpoints"].append(dict(done))
+
+    writer = AsyncCheckpointer()
+    tb = EventWriter(os.path.join(out_dir, "tb"))
+    metrics_path = os.path.join(out_dir, "metrics.json")
+    detector = CorruptionDetector()
+    summary = {"logs": [], "checkpoints": [], "precise_bn_s": [], "evals": {}}
+    max_iter = solver["max_iter"]
+    t0 = time.time()
+    try:
+        for it_no in range(int(trainer.step), max_iter):
+            losses = trainer.train_step(next_batch())
+            step_no = it_no + 1
+            if on_step is not None:
+                on_step(step_no, losses)
+            if step_no % 20 == 0:
+                line = {k: round(float(v), 4) for k, v in losses.items()}
+                total = line.get("total", 0.0)
+                corrupt = detector.loss_window_corrupt(total, ceiling=corrupt_loss_ceiling,
+                                                       in_warmup=step_no <= solver["warmup_iters"])
+                if detector.update(corrupt or fault_injection_active(step_no)):
+                    it.close()
+                    mark_fault_injected()
+                    print(f"FATAL: {detector.consecutive} consecutive corrupt loss windows at iter {step_no} "
+                          f"(total={total}); NOT saving — restart with --resume.", flush=True)
+                    sys.exit(FATAL_EXIT_CODE)
+                line["iteration"] = step_no
+                line["ips"] = round(20 * solver["ims_per_batch"] / (time.time() - t0), 2)
+                line["data_starved"] = round(it.starved_fraction, 3)
+                t0 = time.time()
+                with open(metrics_path, "a") as f:
+                    f.write(json.dumps(line) + "\n")
+                for k, v in line.items():
+                    if k != "iteration":
+                        tb.add_scalar(k, v, step_no)
+                tb.flush()
+                summary["logs"].append(line)
+                print(line, flush=True)
+            if step_no % solver["checkpoint_period"] == 0 or step_no == max_iter:
+                if detector.last_window_corrupt:
+                    print(f"* skipping checkpoint at iter {step_no} (last loss window corrupt)")
+                else:
+                    drain()
+                    writer.save(os.path.join(out_dir, f"model_{step_no:07d}.ckpt"), trainer.checkpoint_tensors(),
+                                trainer.checkpoint_tree)
+                    print(f"* checkpoint scheduled at iter {step_no} (async; durable after drain)")
+            if eval_fn is not None and solver["eval_period"] and (
+                    step_no % solver["eval_period"] == 0 or step_no == max_iter):
+                stats = precise_bn() if solver["precise_bn"] else None
+                tag = f"iter_{step_no:07d}"
+                summary["evals"][tag] = eval_fn(eval_model_of(trainer, stats), tag, step_no == max_iter)
+                t0 = time.time()
+        drain()
+    finally:
+        it.close()
+        tb.close()
+    summary["data_starved"] = it.starved_fraction
+    return summary
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.max_restarts > 0:
+        sys.exit(_supervised(args, argv))
+    if not args.eval_only:
+        assert args.train_json, "--train-json required for training"
+
+    import torch
+
+    from unmore_tpu_torch import resolve_device
+    from unmore_tpu_torch.data.coco import COCOImages
+    from unmore_tpu_torch.detector.config_yaml import dump_yaml
+
+    device = resolve_device(args.device)
+    # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    det_cfg, solver, cfg_yaml = build_from_config(args)
+    solver = auto_scale_workers(solver, 1)
+    out_dir = solver["output_dir"]
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+        f.write(dump_yaml(cfg_yaml) + "\n")
+
+    trainer = make_trainer(det_cfg, solver, device, args.dtype)
+    weights = find_last_checkpoint(out_dir) if args.resume else None
+    if not weights and solver["weights"] and os.path.isfile(str(solver["weights"])):
+        weights = solver["weights"]
+    if weights and args.eval_only:  # evaluation needs the weights only
+        load_detector_weights(trainer.model, weights)
+        print(f"loaded weights from {weights}")
+    elif weights:
+        load_training_state(trainer, weights)
+        print(f"resumed from {weights} at iter {int(trainer.step)}")
+
+    if args.test_dataset and args.data_root:
+        from unmore_tpu_torch.data.registry import resolve_dataset
+
+        test_image_dir, test_json = resolve_dataset(args.test_dataset, args.data_root)
+    else:
+        test_image_dir, test_json = args.test_image_dir, args.test_json
+    tasks = ("bbox",) if args.no_segm or not det_cfg.mask_on else ("bbox", "segm")
+
+    def evaluate(model, tag, verify):
+        assert test_json and test_image_dir, "--test-json/--test-image-dir (or --test-dataset with --data-root) required"
+        return run_eval(model, det_cfg, cfg_yaml, out_dir, tag, COCOImages(test_image_dir, test_json), test_json,
+                        device, args.eval_bs if args.eval_bs > 0 else 4, args.eval_workers, verify, tasks)
+
+    if args.eval_only:
+        return evaluate(eval_model_of(trainer), "eval_only", True)
+
+    from unmore_tpu_torch.data.detection import DetectionDataset
+
+    image_roots = {"": "."}
+    for spec in args.image_root:
+        prefix, _, root = spec.partition("=")
+        image_roots[prefix] = root
+
+    def dataset(seed):
+        return DetectionDataset(args.train_json, image_roots, canvas_size=det_cfg.image_size,
+                                min_sizes=solver["min_sizes"], seed=seed)
+
+    return train_detector(trainer, solver, out_dir, batch_workers(dataset, det_cfg, solver, args.train_workers),
+                          evaluate, args.corrupt_loss_ceiling)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
-"""Box transforms for the detector (port of ``detector/box_ops.py``, the
-inference half).
+"""Box transforms, matching and sampling for the detector (port of
+``detector/box_ops.py``).
 
 detectron2 conventions, so that converted weights see the same boxes:
 Box2BoxTransform deltas (dx, dy, dw, dh) with per-stage weights and
-``scale_clamp = log(1000/16)``, and the xyxy IoU matrix.
+``scale_clamp = log(1000/16)``, the xyxy IoU matrix, smooth-L1, the
+thresholded Matcher and the fg/bg subsampler. The matcher and the sampler
+take a leading batch axis, where the JAX package ``vmap``s one image.
 
 Division by the delta weights goes through a tensor on the boxes' device:
 CUDA divides by a Python scalar as a multiply by its reciprocal, one ulp off
@@ -21,19 +23,21 @@ SCALE_CLAMP = math.log(1000.0 / 16)
 
 
 def pairwise_iou_xyxy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """IoU matrix [N, M] for xyxy boxes (zero for empty boxes)."""
-    area_a = (a[:, 2] - a[:, 0]).clamp(min=0) * (a[:, 3] - a[:, 1]).clamp(min=0)
-    area_b = (b[:, 2] - b[:, 0]).clamp(min=0) * (b[:, 3] - b[:, 1]).clamp(min=0)
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    """IoU matrix [..., N, M] for xyxy boxes [..., N, 4] and [..., M, 4]
+    (zero for empty boxes)."""
+    area_a = (a[..., 2] - a[..., 0]).clamp(min=0) * (a[..., 3] - a[..., 1]).clamp(min=0)
+    area_b = (b[..., 2] - b[..., 0]).clamp(min=0) * (b[..., 3] - b[..., 1]).clamp(min=0)
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = (rb - lt).clamp(min=0)
     inter = wh[..., 0] * wh[..., 1]
-    union = area_a[:, None] + area_b[None, :] - inter
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return torch.where(union > 0, inter / union, torch.zeros((), dtype=inter.dtype, device=inter.device))
 
 
-def _divisor(weights, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(weights, dtype=like.dtype, device=like.device)
+def _const(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (a number or a tuple) as a tensor of ``like``'s dtype and device."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def encode_deltas(src: torch.Tensor, target: torch.Tensor, weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
@@ -65,7 +69,7 @@ def decode_deltas(deltas: torch.Tensor, boxes: torch.Tensor, weights=(1.0, 1.0, 
     h = boxes[..., 3] - boxes[..., 1]
     cx = boxes[..., 0] + 0.5 * w
     cy = boxes[..., 1] + 0.5 * h
-    d = deltas / _divisor(weights, deltas)
+    d = deltas / _const(weights, deltas)
     dw = d[..., 2].clamp(max=SCALE_CLAMP)
     dh = d[..., 3].clamp(max=SCALE_CLAMP)
     ncx = d[..., 0] * w + cx
@@ -91,3 +95,61 @@ def clip_boxes(boxes: torch.Tensor, hw: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor, beta: float = 0.0) -> torch.Tensor:
+    diff = (pred - target).abs()
+    if beta <= 1e-5:
+        return diff
+    return torch.where(diff < beta, 0.5 * diff**2 / _const(beta, diff), diff - 0.5 * beta)
+
+
+def match_proposals(iou: torch.Tensor, thresholds: tuple, labels: tuple, allow_low_quality: bool = False):
+    """detectron2 Matcher of a batch: iou [B, G, P] -> (matched_idx [B, P]
+    int64, match_labels [B, P] int64; 1 fg, 0 bg, -1 ignore). Thresholds and
+    labels are e.g. ((0.3, 0.7), (0, -1, 1)) for the RPN, ((0.5,), (0, 1))
+    for the ROI heads. A column with no GT overlap (padding GTs have IoU 0)
+    matches bg; the first GT of the largest IoU wins. ``allow_low_quality``
+    forces each GT's best-overlapping proposals (every tie) to fg."""
+    B, G, P = iou.shape
+    dev = iou.device
+    if G:
+        vals, idx = iou.max(dim=1)
+    else:
+        vals, idx = iou.new_zeros((B, P)), torch.zeros((B, P), dtype=torch.int64, device=dev)
+    bounds = (float("-inf"),) + tuple(thresholds) + (float("inf"),)
+    match_labels = torch.full((B, P), labels[0], dtype=torch.int64, device=dev)
+    for lo, hi, lab in zip(bounds[:-1], bounds[1:], labels):
+        # thresholds as float32 tensors, as the JAX package compares them
+        sel = (vals >= _const(lo, vals)) & (vals < _const(hi, vals))
+        match_labels = torch.where(sel, torch.full_like(match_labels, lab), match_labels)
+    if allow_low_quality and G:
+        best_per_gt = iou.amax(dim=2, keepdim=True)  # [B, G, 1]
+        forced = ((iou == best_per_gt) & (best_per_gt > 0)).any(dim=1)
+        match_labels = torch.where(forced, torch.ones_like(match_labels), match_labels)
+    return idx, match_labels
+
+
+def _ranks(key: torch.Tensor) -> torch.Tensor:
+    """The rank of each entry of ``key`` [B, P] along P in a stable
+    ascending sort (``argsort(argsort(key))``, with one sort)."""
+    order = torch.argsort(key, dim=1, stable=True)
+    ranks = torch.empty_like(order)
+    return ranks.scatter_(1, order, torch.arange(key.shape[1], device=key.device).expand_as(order))
+
+
+def subsample_labels(match_labels: torch.Tensor, num_samples: int, positive_fraction: float, uniform: torch.Tensor):
+    """Random fg/bg subsampling of a batch (detectron2 ``subsample_labels``
+    with exact count caps): match_labels [B, P], ``uniform`` [B, P] draws in
+    [0, 1). Positives are ranked by their draw and the first
+    min(#pos, num_samples * positive_fraction) kept; negatives fill the rest
+    of ``num_samples`` likewise. Ties (the 2.0 of every other entry) break by
+    index, as the JAX package's stable sort does. Returns (sampled [B, P]
+    float32, sampled fg [B, P] bool)."""
+    pos = match_labels == 1
+    neg = match_labels == 0
+    two = _const(2.0, uniform)
+    n_pos = pos.sum(dim=1, keepdim=True).clamp(max=int(num_samples * positive_fraction))
+    pos_sampled = pos & (_ranks(torch.where(pos, uniform, two)) < n_pos)
+    neg_sampled = neg & (_ranks(torch.where(neg, uniform, two)) < num_samples - n_pos)
+    return (pos_sampled | neg_sampled).float(), pos_sampled

@@ -11,17 +11,28 @@ Two details are the JAX package's, not ``F.interpolate``'s or a pooling
 layer's: the top-down step repeats each pixel 2x2 and crops to the lateral's
 size (``jnp.repeat`` twice, then a slice), and P6 is a 1x1 max-pool of
 stride 2, i.e. ``P5[..., ::2, ::2]``. Features are NCHW.
+
+With ``remat`` (the detector's default, as the JAX package's
+``remat_backbone``) a forward that records gradients checkpoints each
+bottleneck: its activations are recomputed in the backward pass rather than
+kept. The recomputation runs the blocks' BatchNorms in train mode again;
+:func:`~unmore_tpu_torch.models.resnet.frozen_running_stats` keeps it from
+moving their running statistics a second time (flax's ``nn.remat`` updates
+them once).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from unmore_tpu_torch.models.resnet import BatchNorm2d, Bottleneck
+from unmore_tpu_torch.models.resnet import BatchNorm2d, Bottleneck, frozen_running_stats
 
 LEVELS = ("P2", "P3", "P4", "P5", "P6")
 
@@ -29,9 +40,10 @@ LEVELS = ("P2", "P3", "P4", "P5", "P6")
 class ResNet50Trunk(nn.Module):
     """ResNet-50 returning {C2, C3, C4, C5} (NCHW)."""
 
-    def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, stage_blocks: Sequence[int] = (3, 4, 6, 3), remat: bool = False):
         super().__init__()
         self.stage_blocks = tuple(stage_blocks)
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         inplanes, planes = 64, 64
@@ -48,9 +60,19 @@ class ResNet50Trunk(nn.Module):
         feats = {}
         for stage, blocks in enumerate(self.stage_blocks):
             for b in range(blocks):
-                out = getattr(self, f"layer{stage + 1}_{b}")(out)
+                block = getattr(self, f"layer{stage + 1}_{b}")
+                if self.remat and torch.is_grad_enabled():
+                    out = checkpoint(block, out, use_reentrant=False,
+                                     context_fn=functools.partial(_recompute_contexts, block))
+                else:
+                    out = block(out)
             feats[f"C{stage + 2}"] = out
         return feats
+
+
+def _recompute_contexts(block: nn.Module):
+    """(forward context, recomputation context) of a checkpointed block."""
+    return contextlib.nullcontext(), frozen_running_stats(block)
 
 
 class FPN(nn.Module):
@@ -76,9 +98,9 @@ class FPN(nn.Module):
 
 
 class ResNetFPN(nn.Module):
-    def __init__(self, out_channels: int = 256, stage_blocks: Sequence[int] = (3, 4, 6, 3)):
+    def __init__(self, out_channels: int = 256, stage_blocks: Sequence[int] = (3, 4, 6, 3), remat: bool = False):
         super().__init__()
-        self.trunk = ResNet50Trunk(stage_blocks)
+        self.trunk = ResNet50Trunk(stage_blocks, remat)
         self.fpn = FPN(out_channels=out_channels)
 
     def forward(self, images: torch.Tensor) -> dict:

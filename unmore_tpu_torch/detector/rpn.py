@@ -1,10 +1,12 @@
-"""Region Proposal Network: head and fixed-shape proposal generation (port
-of ``detector/rpn.py``, the inference half).
+"""Region Proposal Network: head, losses and fixed-shape proposal generation
+(port of ``detector/rpn.py``).
 
-detectron2 RPN semantics at the CAD settings (pre-NMS top-k 1000 per level
-at test, NMS 0.65, post-NMS top 1000) on static shapes, for a batch at once:
-per level a fixed top-k, decode, clip and NMS; then the top ``post_nms_topk``
-of the kept boxes over all levels, padding slots scoring -inf.
+detectron2 RPN semantics at the CAD settings (pre-NMS top-k 2000 per level
+in training and 1000 at test, NMS 0.65, post-NMS top 4000 / 1000) on static
+shapes, for a batch at once: per level a fixed top-k, decode, clip and NMS;
+then the top ``post_nms_topk`` of the kept boxes over all levels, padding
+slots scoring -inf. :func:`rpn_losses` labels and samples every anchor of
+every image, and normalizes each image's losses by its own sample count.
 
 Two details are the JAX package's: the head's outputs are flattened in NHWC
 order ([B, H*W*A], anchor fastest), the order of ``anchors.grid_anchors``;
@@ -19,7 +21,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from unmore_tpu_torch.detector.box_ops import clip_boxes, decode_deltas
+from unmore_tpu_torch.detector.box_ops import (
+    clip_boxes, decode_deltas, encode_deltas, match_proposals, pairwise_iou_xyxy, smooth_l1, subsample_labels,
+)
 from unmore_tpu_torch.ops.nms import nms_mask
 
 
@@ -52,6 +56,40 @@ class RPNHead(nn.Module):
                 "deltas": self.anchor_deltas(t).permute(0, 2, 3, 1).reshape(B, -1, 4).float(),
             }
         return out
+
+
+@torch.no_grad()
+def rpn_targets(anchors: torch.Tensor, gt_boxes: torch.Tensor, gt_valid: torch.Tensor):
+    """Anchor labels of a batch (IoU 0.3 / 0.7, every GT's best anchors
+    forced fg): (matched GT index [B, A], labels [B, A]). An image with no
+    valid GT has every anchor bg. The [G, A] IoU matrix is made one image at
+    a time: at 1024^2 a batch's would take tens of GB."""
+    idx, labels = zip(*(match_proposals(pairwise_iou_xyxy(gt_boxes[b], anchors)[None] * gt_valid[b, None, :, None],
+                                        (0.3, 0.7), (0, -1, 1), allow_low_quality=True)
+                        for b in range(gt_boxes.shape[0])))
+    labels = torch.cat(labels)
+    return torch.cat(idx), torch.where(gt_valid.any(dim=1, keepdim=True), labels, torch.zeros_like(labels))
+
+
+def rpn_losses(anchors: torch.Tensor, objectness: torch.Tensor, deltas: torch.Tensor, gt_boxes: torch.Tensor,
+               gt_valid: torch.Tensor, uniform: torch.Tensor, batch_size_per_image: int = 256,
+               positive_fraction: float = 0.5) -> dict:
+    """Per-image RPN losses of a batch, each [B]: BCE over the sampled
+    anchors and L1 (beta 0) over the sampled fg anchors, both divided by the
+    image's sample count. anchors [A, 4]; objectness [B, A]; deltas [B, A, 4];
+    gt_boxes [B, G, 4] with gt_valid [B, G]; ``uniform`` [B, A] the
+    sampler's draws."""
+    with torch.no_grad():
+        matched_idx, labels = rpn_targets(anchors, gt_boxes, gt_valid)
+        sampled, fg_sampled = subsample_labels(labels, batch_size_per_image, positive_fraction, uniform)
+        num_sampled = sampled.sum(dim=1).clamp(min=1.0)
+        labels01 = (labels == 1).float()
+        matched_gt = torch.gather(gt_boxes, 1, matched_idx[..., None].expand(-1, -1, 4))
+        target = encode_deltas(anchors, matched_gt)
+    bce = objectness.clamp(min=0) - objectness * labels01 + torch.log1p(torch.exp(-objectness.abs()))
+    l1 = smooth_l1(deltas, target).sum(dim=-1)
+    return {"loss_rpn_cls": (bce * sampled).sum(dim=1) / num_sampled,
+            "loss_rpn_loc": (l1 * fg_sampled).sum(dim=1) / num_sampled}
 
 
 def generate_proposals(level_anchors, level_objectness, level_deltas, image_hw: torch.Tensor,

@@ -7,13 +7,16 @@ BatchNorm normalizes with the running statistics (stage 2). In train mode
 the running ones as flax does: momentum 0.9 on the batch mean and the
 *biased* batch variance, where ``nn.BatchNorm2d`` would take the unbiased
 one. (flax computes that variance as ``mean(x^2) - mean(x)^2``; the port
-with ``torch.var_mean``, which rounds less.) Names follow the
+with ``torch.var_mean``, which rounds less.) :func:`frozen_running_stats`
+holds the running statistics of a module's BatchNorms still, for a forward
+that is a recomputation (an activation checkpoint's). Names follow the
 reference checkpoint: ``classifier_backbone.*`` and
 ``binary_classification_head.*``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -24,17 +27,38 @@ FLAX_BN_MOMENTUM = 0.9  # running = m * running + (1 - m) * batch
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` with flax's running-statistics update in train mode."""
+    """``nn.BatchNorm2d`` with flax's running-statistics update in train mode
+    (skipped while ``update_stats`` is false)."""
+
+    update_stats = True
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():  # in f32, whatever autocast made of x
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
-            m = FLAX_BN_MOMENTUM
-            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
-            self.running_var.mul_(m).add_(var, alpha=1 - m)
+        if self.update_stats:
+            self._update_running_stats(x)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    @torch.no_grad()
+    def _update_running_stats(self, x):
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)  # in f32, whatever autocast made of x
+        m = FLAX_BN_MOMENTUM
+        self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+        self.running_var.mul_(m).add_(var, alpha=1 - m)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Train-mode forwards of ``module`` inside leave its BatchNorms'
+    running statistics as they are."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 class Bottleneck(nn.Module):

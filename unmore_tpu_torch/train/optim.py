@@ -43,13 +43,13 @@ class FlatParams:
     gradients as views of ``self.grad``. Every other parameter of the model
     is frozen (``requires_grad=False``): it enters no optimizer state."""
 
-    def __init__(self, model: torch.nn.Module, names):
+    def __init__(self, model: torch.nn.Module, names, dtype: torch.dtype = torch.float32):
         params = dict(model.named_parameters())
         self.names = list(names)
         self.shapes = [params[n].shape for n in self.names]
         self.sizes = [params[n].numel() for n in self.names]
         dev = params[self.names[0]].device
-        self.data = torch.empty(sum(self.sizes), dtype=torch.float32, device=dev)
+        self.data = torch.empty(sum(self.sizes), dtype=dtype, device=dev)
         self.grad = torch.zeros_like(self.data)
         for p in params.values():
             p.requires_grad_(False)
@@ -65,7 +65,7 @@ class FlatParams:
         return [v.view(s) for v, s in zip(torch.split(flat, self.sizes), self.shapes)]
 
     def flatten(self, tensors: dict) -> torch.Tensor:
-        """Tensors by name -> one flat float32 tensor on :attr:`data`'s device."""
+        """Tensors by name -> one flat tensor of :attr:`data`'s dtype and device."""
         return torch.cat([torch.as_tensor(tensors[n]).reshape(-1) for n in self.names]).to(self.data)
 
 

@@ -42,9 +42,13 @@ class CorruptionDetector:
         return self.consecutive > 0
 
     @staticmethod
-    def loss_window_corrupt(total_loss: float, ceiling: float = 1e3) -> bool:
-        """A window loss that is non-finite or above ``ceiling``."""
-        return not math.isfinite(total_loss) or total_loss > ceiling
+    def loss_window_corrupt(total_loss: float, ceiling: float = 1e3, in_warmup: bool = False) -> bool:
+        """A non-finite window loss always counts; a finite one above
+        ``ceiling`` counts only after warmup (losses under LR warmup may sit
+        above any fixed ceiling)."""
+        if not math.isfinite(total_loss):
+            return True
+        return not in_warmup and total_loss > ceiling
 
 
 def _injection_spec() -> tuple[int, str] | None:
