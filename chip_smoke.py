@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in eight phases,
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in nine phases,
 each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
@@ -79,7 +79,28 @@ each printing one JSON line:
    its max-abs or twice the CPU's own f32-to-f64 distance, parameters 1e-6)
    and remat on against off (equal statistics). The bf16 gradient against
    the f32 one (same decisions) is reported. No kernel of ``csrc/*.cu`` runs
-   here either.
+   here either;
+9. hybrid: the ``dpt_hybrid`` ObjectnessNet (ResNetV2-50 trunk (3, 4, 9)
+   with GroupNorm(32) and weight-standardised convs, ViT-B/16 tapped at blocks
+   8 and 11, reassemble widths (256, 512, 768, 768), features 256, tanh
+   bg-sdf; seeded ``init_like_flax`` weights) at full width: 30 steps of
+   phase 6's recipe on phase 6's world through the prefetch threads (no step
+   may be skipped), then steps on a fixed batch (synchronised ms, FLOPs of a
+   step, MFU, peak memory, parameters), its checkpoint read back leaf for
+   leaf; the trained weights through ``cli/common.py``'s loader into the bf16
+   stage-2 engine (trunk kernels kept in f32, the rest rounded to bf16) and
+   one discovery image group at phase 3's images and cuts, the threshold
+   calibrated on this model (30 steps leave the SDF negative everywhere: the
+   group drops every proposal in the first boundary round), then the same
+   group on phase 3's seeded random weights with the reference's rounds
+   (``sticky_convergence=False``), which must run all 50: wall, GFLOP a crop,
+   MFU, peak, live and executed crops; decode launches counted
+   from zero over both groups, each launch's output equal to the plain
+   version's on its inputs (max abs error 0.0); one scoring call at phase 4's
+   inputs (``device_s``, ``host_s``, MFU); a narrow f32 hybrid on the card
+   against the CPU (forward atol 1e-4, losses rtol 1e-5, gradient rel L2
+   1e-3); bf16 against f32 at full width on one 256-crop chunk whose first 8
+   crops are phase 5's, beside phase 5's DPT-Large figures.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -351,6 +372,43 @@ def executed_crops(n_live, chunk, tail):
     return full + -(-(n_live - full) // tail) * tail
 
 
+def crop_counts(results, cfg):
+    """(live, executed) crops of each model phase of one discovery image group."""
+    s0 = results[0]["stats"]
+    exist_tail = min(cfg.crop_chunk, cfg.exist_tile) if cfg.exist_tile > cfg.crop_chunk else cfg.tail
+    n_seed = sum(r["stats"]["n_seed"] for r in results)
+    n_split_kept = min(s0["n_split"], cfg.max_splits * cfg.image_batch)
+    live = {"existence": n_seed + n_split_kept, "center": s0["n_center_in"],
+            "recheck_center": s0["n_recheck_center_in"], "boundary": sum(s0["boundary_active_trace"])}
+    executed = {
+        "existence": sum(executed_crops(n, cfg.exist_tile, exist_tail) for n in (n_seed, n_split_kept)),
+        "center": executed_crops(s0["n_center_in"], cfg.crop_chunk, cfg.tail),
+        "recheck_center": executed_crops(s0["n_recheck_center_in"], cfg.crop_chunk, cfg.tail),
+        "boundary": sum(executed_crops(n, cfg.crop_chunk, cfg.tail) for n in s0["boundary_active_trace"]),
+    }
+    return live, executed
+
+
+def group_flops(executed, both, sdf_only, cls):
+    """Model FLOPs of a group: the classifier on the existence crops, both
+    heads on the center crops, the SDF head on the boundary rounds."""
+    return (executed["existence"] * cls + (executed["center"] + executed["recheck_center"]) * both
+            + executed["boundary"] * sdf_only)
+
+
+def check_boxes(images, results, what):
+    """Every image's boxes: finite [n, 4] inside the image."""
+    import numpy as np
+
+    for img, res in zip(images, results):
+        b = res["boxes"]
+        if b.ndim != 2 or b.shape[1] != 4 or not np.isfinite(b).all():
+            fail(f"{what} returned malformed boxes {b.shape}")
+        h, w = img.shape[:2]
+        if len(b) and ((b[:, :2] < 0).any() or (b[:, 2] > w).any() or (b[:, 3] > h).any()):
+            fail(f"{what} returned boxes outside the image")
+
+
 def phase_main_path(device, kernel_counters):
     import numpy as np
     import torch
@@ -390,32 +448,14 @@ def phase_main_path(device, kernel_counters):
         if n == 0:
             fail(f"kernel {name} was not launched on the main path")
 
-    for img, res, ref in zip(images, results, reference):
-        b = res["boxes"]
-        if b.ndim != 2 or b.shape[1] != 4 or not np.isfinite(b).all():
-            fail(f"discover_batch returned malformed boxes {b.shape}")
-        h, w = img.shape[:2]
-        if len(b) and ((b[:, :2] < 0).any() or (b[:, 2] > w).any() or (b[:, 3] > h).any()):
-            fail("discover_batch returned boxes outside the image")
-        if res["stats"] != ref["stats"] or not np.array_equal(b, ref["boxes"]):
+    check_boxes(images, results, "discover_batch")
+    for res, ref in zip(results, reference):
+        if res["stats"] != ref["stats"] or not np.array_equal(res["boxes"], ref["boxes"]):
             fail(f"kernel and plain decode disagree end to end: {res['stats']} vs {ref['stats']}")
 
-    s0 = results[0]["stats"]
-    B = cfg.image_batch
-    exist_tail = min(cfg.crop_chunk, cfg.exist_tile) if cfg.exist_tile > cfg.crop_chunk else cfg.tail
-    n_seed = sum(r["stats"]["n_seed"] for r in results)
-    n_split_kept = min(s0["n_split"], cfg.max_splits * B)
-    live = {"existence": n_seed + n_split_kept, "center": s0["n_center_in"],
-            "recheck_center": s0["n_recheck_center_in"], "boundary": sum(s0["boundary_active_trace"])}
-    executed = {
-        "existence": sum(executed_crops(n, cfg.exist_tile, exist_tail) for n in (n_seed, n_split_kept)),
-        "center": executed_crops(s0["n_center_in"], cfg.crop_chunk, cfg.tail),
-        "recheck_center": executed_crops(s0["n_recheck_center_in"], cfg.crop_chunk, cfg.tail),
-        "boundary": sum(executed_crops(n, cfg.crop_chunk, cfg.tail) for n in s0["boundary_active_trace"]),
-    }
+    live, executed = crop_counts(results, cfg)
     both, sdf_only, cls = model_flops_per_crop(objectness, classifier, cfg.crop_size, device)
-    flops = (executed["existence"] * cls + (executed["center"] + executed["recheck_center"]) * both
-             + executed["boundary"] * sdf_only)
+    flops = group_flops(executed, both, sdf_only, cls)
     emit({
         "phase": "main_path", "model": "dpt_large (vitl16_384, features 256, tanh bg-sdf) + resnet50, bf16",
         "cuts": cuts, "crop_size": cfg.crop_size, "crop_chunk": cfg.crop_chunk,
@@ -596,21 +636,29 @@ def phase_scoring(device, main_path):
 
 
 # ------------------------------------------------------------------ phase 5
+def random_crops(image, n, seed, device):
+    """``n`` 128^2 crops of seeded random boxes (40-160 px) of a uint8 image."""
+    import torch
+
+    from unmore_tpu_torch.ops.image import crop_and_resize
+
+    canvas = torch.from_numpy(image).to(device).float()[None] / 255.0
+    g = torch.Generator().manual_seed(seed)
+    xy = torch.rand(n, 2, generator=g) * 160
+    wh = torch.rand(n, 2, generator=g) * 120 + 40
+    boxes = torch.cat([xy, xy + wh], dim=1).to(device)
+    return crop_and_resize(canvas, boxes, out_size=128, image_idx=torch.zeros(n, dtype=torch.long, device=device))
+
+
 def phase_bf16(device, objectness_bf16, images):
     import torch
 
     from unmore_tpu_torch.cli.common import build_objectness, init_random_variables
-    from unmore_tpu_torch.ops.image import crop_and_resize
 
     # the same seeded weights in f32 (the bf16 model holds them rounded)
     ref = build_objectness(DptLarge, "float32", device)
     init_random_variables(ref, seed=0)
-    canvas = torch.from_numpy(images[0]).to(device).float()[None] / 255.0
-    g = torch.Generator().manual_seed(1)
-    xy = torch.rand(8, 2, generator=g) * 160
-    wh = torch.rand(8, 2, generator=g) * 120 + 40
-    boxes = torch.cat([xy, xy + wh], dim=1).to(device)
-    crops = crop_and_resize(canvas, boxes, out_size=128, image_idx=torch.zeros(8, dtype=torch.long, device=device))
+    crops = random_crops(images[0], 8, 1, device)
     with torch.inference_mode():
         want = ref(crops)
         got = objectness_bf16(crops)
@@ -619,8 +667,10 @@ def phase_bf16(device, objectness_bf16, images):
     agree = float(((got["sdf_maps"] > 0) == (want["sdf_maps"] > 0)).float().mean())
     if not all(torch.isfinite(t).all() for t in (*got.values(), *want.values())):
         fail("non-finite objectness output")
-    emit({"phase": "bf16", "crops": 8, "sdf_max_abs_diff": sdf_err, "center_max_abs_diff": center_err,
-          "sdf_sign_agreement": agree})
+    row = {"phase": "bf16", "crops": 8, "sdf_max_abs_diff": sdf_err, "center_max_abs_diff": center_err,
+           "sdf_sign_agreement": agree}
+    emit(row)
+    return row
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1744,6 +1794,295 @@ def phase_cad_train(device, smi):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 9
+# the dpt_hybrid backbone (ResNetV2-50 trunk + ViT-B/16) at full width through
+# stage-1 training, discovery and scoring: phase 6's recipe and world, phase
+# 3's images and cuts, phase 4's inputs
+class DptHybrid:
+    backbone_type, sdf_activation, use_bg_sdf = "dpt_hybrid", "tanh", True
+
+
+HYBRID_FIXED_STEPS = 10  # synchronised steps on one batch, after the 30 fed ones
+HYBRID_BF16_CROPS = 256  # one crop chunk
+HYBRID_F32_TOL = {"forward_abs": 1e-4, "loss_rel": 1e-5, "grad_rel_l2": 1e-3}
+
+
+def tiny_hybrid():
+    from unmore_tpu_torch.models.objectness import ObjectnessNet
+    from unmore_tpu_torch.models.vit import ViTConfig
+
+    trunk = dict(stem_width=32, stage_widths=((32, 64), (64, 128), (128, 256)), stage_blocks=(2, 2, 2), groups=8)
+    return ObjectnessNet("dpt_hybrid", "tanh", True, features=64, hooks=(1, 3), widths=(64, 128, 128, 128),
+                         vit_config=ViTConfig(depth=4, dim=128, heads=4, mlp_dim=256, pretrain_grid=8),
+                         hybrid_resnet_kwargs=trunk)
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def hybrid_train(device, world, folder):
+    """30 prefetch-fed steps of the hybrid at the script.sh recipe, then
+    HYBRID_FIXED_STEPS on one batch, then its checkpoint read back."""
+    import statistics
+
+    from unmore_tpu_torch.cli.common import build_objectness
+    from unmore_tpu_torch.config import ModelConfig, OptimConfig, TrainObjectnessConfig
+    from unmore_tpu_torch.data.prefetch import PrefetchIterator
+    from unmore_tpu_torch.train.objectness import ObjectnessTrainer, to_device
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    cfg = TrainObjectnessConfig(model=ModelConfig(backbone_type="dpt_hybrid", dtype="bfloat16"), optim=OptimConfig(),
+                                batch_size=TRAIN_BATCH)
+    model = build_objectness(DptHybrid, "float32", device).train()
+    init_like_flax(model, seed=0)
+    trainer = ObjectnessTrainer(model, cfg)
+    prefetch = PrefetchIterator(worker_fns=[objectness_worker(*world, 400 + w) for w in range(TRAIN_WORKERS)])
+    try:
+        row = train_summary("dpt_hybrid", trainer, prefetch, device, "total")
+        fixed = to_device(next(prefetch), device)
+    finally:
+        prefetch.close()
+    if row["skipped_in_timed_steps"]:
+        fail(f"dpt_hybrid: the spike guard skipped {row['skipped_in_timed_steps']} of {TRAIN_STEPS} steps")
+    fixed_s = []
+    for _ in range(HYBRID_FIXED_STEPS):
+        t0 = time.perf_counter()
+        trainer.train_step(fixed)
+        sync(device)
+        fixed_s.append(time.perf_counter() - t0)
+    row["fixed_batch_step_ms"] = [x * 1e3 for x in fixed_s]
+    row["fixed_batch_step_ms_median"] = statistics.median(fixed_s) * 1e3
+    row["params"] = trainer.flat.data.numel()
+    path, row["checkpoint"] = checkpoint_round_trip("dpt_hybrid", trainer, folder)
+    return trainer, path, row
+
+
+def hybrid_discovery(device, trainer, obj_path, kernel_counters):
+    """The trained weights through cli/common.py's loader into the bf16 stage-2
+    engine (trunk kernels kept in f32, every other weight rounded to bf16) and
+    one discovery image group at phase 3's images and cuts, the threshold
+    calibrated on this model. Thirty steps leave the SDF negative on every
+    crop, so that group drops every proposal in the first boundary round; a
+    second group, the one timed, runs on phase 3's seeded random weights
+    (``init_random_variables``) with the reference's round semantics
+    (``sticky_convergence=False``: converged boxes are predicted again every
+    round), so that all ``n_round`` boundary rounds run. Decode launches are
+    counted over both groups, and each is held against the plain version on
+    its own inputs afterwards."""
+    import torch
+
+    from unmore_tpu_torch.cli.common import (
+        build_classifier, build_objectness, init_random_variables, load_objectness_weights, make_apply_fns,
+    )
+    from unmore_tpu_torch.models.hybrid import StdConv2dSame
+    from unmore_tpu_torch.ops.fields import center_singularity_scores
+    from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
+
+    objectness = build_objectness(DptHybrid, "bfloat16", device)
+    load_objectness_weights(objectness, obj_path)
+    loaded, trained = objectness.state_dict(), trainer.model.state_dict()
+    bad = [k for k in trainer.layout if not torch.equal(loaded[k], trained[k].to(loaded[k].dtype))]
+    ws = [f"{n}.weight" for n, m in objectness.named_modules() if isinstance(m, StdConv2dSame)]
+    bad += [k for k in ws if loaded[k].dtype != torch.float32]
+    if bad or not ws:
+        fail(f"stage-2 loader gave other weights than the trainer's at {bad[:5]} ({len(ws)} standardised convs)")
+    classifier = build_classifier("bfloat16", device)
+    init_random_variables(classifier, seed=0)
+    images = synthetic_images(seed=0)
+    fns = make_apply_fns(objectness, classifier)
+    calls = []
+
+    def group(**extra):
+        cuts = dict(MAIN_PATH_CUTS, **extra, **calibrate(objectness, images[0], ReasoningConfig(), device))
+        engine = ObjectDiscoveryEngine(*fns, ReasoningConfig(**cuts), device=device)
+
+        def record(sdf, center, decode=engine._decode):
+            out = decode(sdf, center)
+            calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
+            return out
+
+        engine._decode = record
+        peak_bytes(device, reset=True)
+        t0 = time.perf_counter()
+        results = engine.discover_batch(images)
+        sync(device)
+        wall = time.perf_counter() - t0
+        check_boxes(images, results, "dpt_hybrid discovery")
+        return results, cuts, wall, peak_bytes(device)
+
+    for counted in kernel_counters.values():
+        counted.launches = 0
+    on_trained = group()
+    init_random_variables(objectness, seed=0)
+    results, cuts, wall, peak = group(sticky_convergence=False)
+    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    cfg = ReasoningConfig(**cuts)
+    rounds = [r["stats"]["boundary_rounds"] for r in results]
+    if rounds != [cfg.n_round] * len(results):
+        fail(f"the dpt_hybrid group ran {rounds} boundary rounds, not all {cfg.n_round}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was not launched on the dpt_hybrid path")
+
+    errors = []
+    for sdf, center, got in calls:  # outside the counted runs
+        want = center_singularity_scores(sdf, center)
+        pos = want[0] > 1e-4
+        if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
+            fail("the decode kernel's union or argmax differs from the plain version on the dpt_hybrid path")
+        errors.append(float((got[0] - want[0]).abs().max()))
+    if len(calls) != launches["fused_center_decode"] or any(e != 0.0 for e in errors):
+        fail(f"dpt_hybrid decode launches against the plain version: {errors} ({len(calls)} recorded)")
+
+    live, executed = crop_counts(results, cfg)
+    both, sdf_only, cls = model_flops_per_crop(objectness, classifier, cfg.crop_size, device)
+    flops = group_flops(executed, both, sdf_only, cls)
+    row = {
+        "on_trained_weights": {"cuts": on_trained[1], "wall_s": on_trained[2], "stats": [r["stats"] for r in
+                                                                                       on_trained[0]]},
+        "weights": "phase 3's seeded random weights (init_random_variables, seed 0); the reference's rounds",
+        "cuts": cuts, "wall_s": wall, "live_crops_per_phase": live, "executed_crops_per_phase": executed,
+        "gflop_per_crop": {"objectness_both_heads": both / 1e9, "objectness_sdf_only": sdf_only / 1e9,
+                           "classifier": cls / 1e9},
+        "model_tflop": flops / 1e12, "mfu_vs_989_tflops_bf16": flops / wall / H100_BF16_FLOPS,
+        "max_memory_allocated_bytes": peak, "kernel_launches": launches, "f32_standardised_kernels": len(ws),
+        "decode_max_abs_err_per_launch": errors,
+        "stats": [r["stats"] for r in results], "n_boxes": [len(r["boxes"]) for r in results],
+    }
+    return fns, row, {"both_heads": both / 1e9, "classifier": cls / 1e9}
+
+
+def hybrid_scoring(device, fns, gflop, discovered):
+    """One scoring call at phase 4's inputs after a warm-up call: device and
+    host seconds and MFU."""
+    import numpy as np
+
+    from unmore_tpu_torch.reasoning.scoring import ObjectScoringEngine, ScoringConfig
+
+    images, boxes = scoring_inputs(discovered)
+    ids = list(range(1, len(images) + 1))
+    cfg = ScoringConfig()
+    engine = ObjectScoringEngine(*fns, cfg, device=device)
+    t0 = time.perf_counter()
+    first = engine.score_batch(images, boxes, ids)
+    first_wall = time.perf_counter() - t0
+    sync(device)
+    t0 = time.perf_counter()
+    anns = engine.score_batch(images, boxes, ids)
+    wall = time.perf_counter() - t0
+    timings = dict(engine.last_timings)
+    scores = [a[k] for per_image in anns for a in per_image for k in ("score", "existence_score", "center_score",
+                                                                      "boundary_score")]
+    if not all(np.isfinite(scores)) or anns != first:
+        fail("dpt_hybrid scoring: non-finite scores, or two calls on the same inputs differ")
+    n_crops = -(-sum(len(b) for b in boxes) // cfg.slot_multiple) * cfg.slot_multiple
+    flops = n_crops * (gflop["both_heads"] + gflop["classifier"]) * 1e9
+    return {"lattice_slots": n_crops, "annotations_per_image": [len(a) for a in anns],
+            "device_s": timings["device_s"], "host_s": timings["host_s"], "wall_s": wall,
+            "first_call_wall_s": first_wall, "crops_per_device_s": n_crops / timings["device_s"],
+            "mfu_vs_989_tflops_bf16_device_s": flops / timings["device_s"] / H100_BF16_FLOPS}
+
+
+def hybrid_f32_card_vs_cpu(device, batch_host):
+    """A narrow f32 hybrid (TF32 off) on the card and on the CPU from equal
+    weights: one forward, then one training step on an equal batch."""
+    import torch
+
+    from unmore_tpu_torch.config import ModelConfig, TrainObjectnessConfig
+    from unmore_tpu_torch.train.objectness import ObjectnessTrainer, decode_wire_batch, to_device
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    cfg = TrainObjectnessConfig(model=ModelConfig(dtype="float32"))
+    cpu_model = tiny_hybrid()
+    init_like_flax(cpu_model, 5)
+    card_model = tiny_hybrid()
+    card_model.load_state_dict(cpu_model.state_dict())
+    host = {k: v[:2] for k, v in batch_host.items()}
+    outs = []
+    for model, dev in ((cpu_model, torch.device("cpu")), (card_model.to(device), device)):
+        batch = to_device(host, dev)
+        with torch.no_grad():
+            fwd = {k: v.cpu() for k, v in model.eval()(decode_wire_batch(batch)["image"]).items()}
+        trainer = ObjectnessTrainer(model, cfg)
+        losses = trainer.train_step(batch)
+        outs.append((fwd, {k: float(v) for k, v in losses.items()}, trainer.flat.grad.cpu(), trainer.flat.data.cpu()))
+    (f_cpu, l_cpu, g_cpu, p_cpu), (f_card, l_card, g_card, p_card) = outs
+    row = {"crops": 2, "tolerance": HYBRID_F32_TOL,
+           "forward_max_abs_diff": max(float((f_cpu[k] - f_card[k]).abs().max()) for k in f_cpu),
+           "losses_cpu": l_cpu, "losses_card": l_card,
+           "max_rel_loss_diff": max(abs(l_cpu[k] - l_card[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu),
+           "grad_rel_l2": rel_l2(g_card, g_cpu),
+           "max_abs_param_diff_after_step": float((p_cpu - p_card).abs().max())}
+    if not (row["forward_max_abs_diff"] <= HYBRID_F32_TOL["forward_abs"]
+            and row["max_rel_loss_diff"] <= HYBRID_F32_TOL["loss_rel"]
+            and row["grad_rel_l2"] <= HYBRID_F32_TOL["grad_rel_l2"]):
+        fail(f"f32 dpt_hybrid on the card and on the CPU differ: {row}")
+    return row
+
+
+def hybrid_bf16_vs_f32(device, images):
+    """The full-width hybrid in bf16 and in f32 from the same seeded weights
+    (phase 5's) on one chunk of HYBRID_BF16_CROPS crops of phase 3's first
+    image, the first 8 of them phase 5's."""
+    import torch
+
+    from unmore_tpu_torch.cli.common import build_objectness, init_random_variables
+
+    crops = torch.cat([random_crops(images[0], 8, 1, device),
+                       random_crops(images[0], HYBRID_BF16_CROPS - 8, 2, device)])
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        model = build_objectness(DptHybrid, dtype, device)
+        init_random_variables(model, seed=0)
+        chunk = HYBRID_BF16_CROPS if dtype == "bfloat16" else 64  # f32 activations of 256 crops do not fit twice
+        with torch.inference_mode():
+            parts = [model(crops[i : i + chunk]) for i in range(0, HYBRID_BF16_CROPS, chunk)]
+        out[dtype] = {k: torch.cat([p[k] for p in parts]) for k in ("sdf_maps", "center_fields")}
+        del model, parts
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    got, want = out["bfloat16"], out["float32"]
+    if not all(torch.isfinite(t).all() for d in out.values() for t in d.values()):
+        fail("non-finite dpt_hybrid output")
+    return {"crops": HYBRID_BF16_CROPS,
+            **{f"{k}_max_abs_diff": float((got[k] - want[k]).abs().max()) for k in got},
+            **{f"{k}_rel_l2": rel_l2(got[k], want[k]) for k in got},
+            "sdf_sign_agreement": float(((got["sdf_maps"] > 0) == (want["sdf_maps"] > 0)).float().mean()),
+            "phase_5_crops": {f"{k}_max_abs_diff": float((got[k][:8] - want[k][:8]).abs().max()) for k in got}}
+
+
+def phase_hybrid(device, kernel_counters, discovered, dpt_large_bf16):
+    import shutil
+
+    import torch
+
+    t_phase = t0 = time.perf_counter()
+    world = shape_world(seed=0, **TRAIN_WORLD)
+    world_s = time.perf_counter() - t0
+    folder = Path("build") / "smoke_hybrid"
+    folder.mkdir(parents=True, exist_ok=True)
+    trainer, obj_path, train_row = hybrid_train(device, world, folder)
+    fns, discovery, gflop = hybrid_discovery(device, trainer, obj_path, kernel_counters)
+    launches = discovery["kernel_launches"]
+    del trainer
+    scoring = hybrid_scoring(device, fns, gflop, discovered)
+    del fns
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    f32 = hybrid_f32_card_vs_cpu(device, objectness_worker(*world, 500)())
+    bf16 = hybrid_bf16_vs_f32(device, synthetic_images(seed=0))
+    emit({"phase": "hybrid", "model": "dpt_hybrid (vitb_rn50_384: resnetv2-50 (3,4,9) GroupNorm(32) + vit-b/16 "
+                                      "taps (8,11), widths (256,512,768,768), features 256, tanh bg-sdf)",
+          "world_make_s": world_s, "train": train_row, "discovery": discovery, "scoring": scoring,
+          "f32_card_vs_cpu": f32, "bf16_vs_f32": bf16, "dpt_large_bf16_vs_f32_8_crops": dpt_large_bf16,
+          "phase_s": time.perf_counter() - t_phase})
+    shutil.rmtree(folder)  # the checkpoint of ~1.5 GB
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1777,17 +2116,21 @@ def main():
     main_path = phase_main_path(device, counters)
     launches, chunk_row = main_path["launches"], main_path["chunk_row"]
     phase_scoring(device, main_path)
-    phase_bf16(device, main_path["objectness"], main_path["images"])
+    bf16 = phase_bf16(device, main_path["objectness"], main_path["images"])
     del main_path["objectness"], main_path["fns"]
     torch.cuda.empty_cache()
     phase_train(device)
     phase_cad(device, smi)
     phase_cad_train(device, smi)
+    hybrid_launches = phase_hybrid(device, counters, main_path["results"], bf16)
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{
         "name": "fused_center_decode", "route": "cuda", "source": KERNEL_SOURCES["decode"],
-        "replaces": replaces_of(KERNEL_SOURCES["decode"]), "launches": launches["fused_center_decode"],
+        "replaces": replaces_of(KERNEL_SOURCES["decode"]),
+        "launches": launches["fused_center_decode"] + hybrid_launches["fused_center_decode"],
+        "launches_by_path": {"dpt_large": launches["fused_center_decode"],
+                             "dpt_hybrid": hybrid_launches["fused_center_decode"]},
         "max_abs_err": max(r["max_abs_err"] for r in (*kernel_rows.values(), chunk_row)),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,

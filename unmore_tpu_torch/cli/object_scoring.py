@@ -42,7 +42,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights used without checkpoints")
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--image_size", type=int, default=128)
-    p.add_argument("--backbone_type", type=str, default="dpt_large", choices=["dpt_large", "dpt_base"])
+    p.add_argument("--backbone_type", type=str, default="dpt_large",
+                   choices=["dpt_large", "dpt_base", "dpt_hybrid"])
     p.add_argument("--sdf_activation", type=str, default=None)
     p.add_argument("--use_bg_sdf", action="store_true")
     p.add_argument("--objectness_resume", type=str, default=None)

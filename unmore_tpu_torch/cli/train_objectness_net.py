@@ -91,7 +91,8 @@ def parse_args(argv=None):
                    help=IGNORED + " (the busy-wedge watchdog of the TPU build: under CUDA a host thread "
                                   "waiting on the device spins, so a silent child that burns CPU is normal)")
     p.add_argument("--remat_vit", action="store_true",
-                   help="checkpoint the ViT blocks (recompute their activations in the backward pass)")
+                   help="checkpoint the ViT blocks (recompute their activations in the backward pass); "
+                        "dpt_hybrid ignores it, as the JAX package does")
     p.add_argument("--vit_pack", type=int, default=1,
                    help="ViT sequence packing; only 1 is ported (ROADMAP.md, A1-A5 left-outs)")
     p.add_argument("--skip_loss_above", type=float, default=1000.0,

@@ -1,19 +1,35 @@
 """Typed configuration of stage-1 training (port of the JAX package's ``config.py``).
 
-The same dataclasses with the same defaults. The defaults are the
-reference recipe (``script.sh``: batch 20, gamma 0.1, both extra SDF losses
-on); the CLI's own defaults differ (batch 16, gamma 1, extra losses off) and
-stay as they are, as in the JAX package.
+The same dataclasses with the same defaults, and the same JSON round trip
+(:func:`save_config`, :func:`load_config`): a file either package writes
+loads in the other. The defaults are the reference recipe (``script.sh``:
+batch 20, gamma 0.1, both extra SDF losses on); the CLI's own defaults
+differ (batch 16, gamma 1, extra losses off) and stay as they are, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+
+
+def save_config(cfg, path: str):
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+
+def load_config(cls, path: str):
+    """A config dataclass from its JSON; keys the class lacks are ignored."""
+    with open(path) as f:
+        data = json.load(f)
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in data.items() if k in fields})
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    backbone_type: str = "dpt_large"
+    backbone_type: str = "dpt_large"  # dpt_large | dpt_base | dpt_hybrid
     sdf_activation: str | None = "tanh"
     use_bg_sdf: bool = True
     image_size: int = 128

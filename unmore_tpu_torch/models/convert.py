@@ -10,7 +10,12 @@ The port's parameter names are the reference checkpoint's, so a reference
   [H, W, O, I]) -> IOHW: both are a (3, 2, 0, 1) transpose
 * Dense kernel [in, out] -> Linear weight [out, in]
 * BatchNorm ``scale/bias`` + ``batch_stats`` ``mean/var`` -> ``weight/bias/
-  running_mean/running_var``; LayerNorm ``scale`` -> ``weight``
+  running_mean/running_var``; LayerNorm and GroupNorm ``scale`` -> ``weight``
+* the hybrid's trunk: ``backbone/vit/resnet/{stem_conv, stem_norm,
+  stage{s}_block{b}/{conv1..3, norm1..3, downsample_conv, downsample_norm}}``
+  -> ``backbone.pretrained.model.patch_embed.backbone.{stem.{conv,norm},
+  stages.{s}.blocks.{b}.{conv1..3, norm1..3, downsample.{conv,norm}}}``; its
+  1x1 projection ``backbone/vit/patch_embed`` -> ``...patch_embed.proj``
 
 The way back, port -> JAX (the trainers' checkpoints), goes through
 :func:`flax_layout`: one rule per key, so that the same map carries the
@@ -53,9 +58,33 @@ def _head_indices(use_relu: bool) -> list[int]:
     return [0, 2, 4, 6] if use_relu else [0, 1, 2, 3]
 
 
+def _trunk_from_flax(resnet: Mapping[str, Any], sd: dict):
+    """The hybrid's ResNetV2 trunk (``backbone/vit/resnet``) into ``sd``."""
+    t = "backbone.pretrained.model.patch_embed.backbone."
+
+    def norm(name, leaf):
+        sd[name + ".weight"] = _t(leaf["scale"])
+        sd[name + ".bias"] = _t(leaf["bias"])
+
+    sd[t + "stem.conv.weight"] = _conv(resnet["stem_conv"]["kernel"])
+    norm(t + "stem.norm", resnet["stem_norm"])
+    for name, blk in resnet.items():
+        m = re.fullmatch(r"stage(\d)_block(\d+)", name)
+        if m is None:
+            continue
+        bt = f"{t}stages.{m[1]}.blocks.{m[2]}."
+        for c in ("conv1", "conv2", "conv3"):
+            sd[bt + c + ".weight"] = _conv(blk[c]["kernel"])
+        for n in ("norm1", "norm2", "norm3"):
+            norm(bt + n, blk[n])
+        if "downsample_conv" in blk:
+            sd[bt + "downsample.conv.weight"] = _conv(blk["downsample_conv"]["kernel"])
+            norm(bt + "downsample.norm", blk["downsample_norm"])
+
+
 def objectness_state_dict_from_flax(params: Mapping[str, Any], sdf_activation: str | None = "tanh",
                                     use_bg_sdf: bool = True) -> dict[str, torch.Tensor]:
-    """JAX ObjectnessNet params (dpt_large / dpt_base) -> port state_dict."""
+    """JAX ObjectnessNet params (dpt_large / dpt_base / dpt_hybrid) -> port state_dict."""
     sd: dict[str, torch.Tensor] = {}
     bb = params["backbone"]
     vit = bb["vit"]
@@ -64,6 +93,8 @@ def objectness_state_dict_from_flax(params: Mapping[str, Any], sdf_activation: s
     sd[m + "pos_embed"] = _t(vit["pos_embed"])
     sd[m + "patch_embed.proj.weight"] = _conv(vit["patch_embed"]["kernel"])
     sd[m + "patch_embed.proj.bias"] = _t(vit["patch_embed"]["bias"])
+    if "resnet" in vit:
+        _trunk_from_flax(vit["resnet"], sd)
     for name, blk in vit.items():
         if not re.fullmatch(r"block\d+", name):
             continue
@@ -154,7 +185,25 @@ def classifier_state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, t
 # layout change: "conv" (OIHW <-> HWIO; IOHW <-> HWOI for the transposed
 # convs), "linear" ([out, in] <-> [in, out]) or "vec" (unchanged).
 _OBJ = r"backbone\.pretrained\."
+_TRUNK = _OBJ + r"model\.patch_embed\.backbone\."
+_RESNET = ("backbone", "vit", "resnet")
+
+
+def _norm_leaf(leaf: str) -> str:
+    return "scale" if leaf == "weight" else "bias"
+
+
 _OBJECTNESS_RULES = (
+    (_TRUNK + r"stem\.conv\.weight", lambda m: (*_RESNET, "stem_conv", "kernel"), "conv"),
+    (_TRUNK + r"stem\.norm\.(weight|bias)", lambda m: (*_RESNET, "stem_norm", _norm_leaf(m[1])), "vec"),
+    (_TRUNK + r"stages\.(\d)\.blocks\.(\d+)\.(conv[123])\.weight",
+     lambda m: (*_RESNET, f"stage{m[1]}_block{m[2]}", m[3], "kernel"), "conv"),
+    (_TRUNK + r"stages\.(\d)\.blocks\.(\d+)\.(norm[123])\.(weight|bias)",
+     lambda m: (*_RESNET, f"stage{m[1]}_block{m[2]}", m[3], _norm_leaf(m[4])), "vec"),
+    (_TRUNK + r"stages\.(\d)\.blocks\.(\d+)\.downsample\.conv\.weight",
+     lambda m: (*_RESNET, f"stage{m[1]}_block{m[2]}", "downsample_conv", "kernel"), "conv"),
+    (_TRUNK + r"stages\.(\d)\.blocks\.(\d+)\.downsample\.norm\.(weight|bias)",
+     lambda m: (*_RESNET, f"stage{m[1]}_block{m[2]}", "downsample_norm", _norm_leaf(m[3])), "vec"),
     (_OBJ + r"model\.(cls_token|pos_embed)", lambda m: ("backbone", "vit", m[1]), "vec"),
     (_OBJ + r"model\.patch_embed\.proj\.weight", lambda m: ("backbone", "vit", "patch_embed", "kernel"), "conv"),
     (_OBJ + r"model\.patch_embed\.proj\.bias", lambda m: ("backbone", "vit", "patch_embed", "bias"), "vec"),

@@ -4,7 +4,10 @@ ViT taps -> project-readout -> reassemble (1x1 conv + {x4 deconv, x2
 deconv, id, /2 conv}) -> 3x3 ``layer*_rn`` convs to a common width -> four
 refinenet fusion blocks (residual conv units, x2 ``align_corners=True``
 upsampling, 1x1 out conv) -> final x2 upsample. For a 128^2 input with patch
-16 the pyramid is 32/16/8/4, fused back to 64, then 128.
+16 the pyramid is 32/16/8/4, fused back to 64, then 128. The hybrid
+(``vitb_rn50_384``) takes its first two maps from the ResNetV2 trunk's
+stages as they are: ``act_postprocess1/2`` are identities with no
+parameters, as in the reference.
 
 Module names follow the reference checkpoint: ``pretrained.model`` (the
 ViT), ``pretrained.act_postprocess{n}.{0,3,4}``, ``scratch.layer{n}_rn``,
@@ -18,6 +21,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unmore_tpu_torch.models.hybrid import HybridViTBackbone
 from unmore_tpu_torch.models.vit import VIT_CONFIGS, ViTBackbone, ViTConfig
 from unmore_tpu_torch.ops.image import resize_bilinear_nchw
 
@@ -25,7 +29,10 @@ from unmore_tpu_torch.ops.image import resize_bilinear_nchw
 DPT_BACKBONE_SPECS = {
     "vitl16_384": dict(vit="vitl16_384", features=(256, 512, 1024, 1024), hooks=(5, 11, 17, 23)),
     "vitb16_384": dict(vit="vitb16_384", features=(96, 192, 384, 768), hooks=(2, 5, 8, 11)),
+    # hybrid: maps 1/2 from the trunk's stages, 3/4 from ViT blocks 8/11
+    "vitb_rn50_384": dict(vit="vitb16_384", features=(256, 512, 768, 768), hooks=(8, 11)),
 }
+HYBRID = "vitb_rn50_384"
 
 
 class ProjectReadout(nn.Module):
@@ -90,13 +97,15 @@ def _reassemble(i: int, dim: int, width: int) -> nn.Sequential:
 class DPTFeatureExtractor(nn.Module):
     """images [B, 3, H, W] -> features [B, features, H, W].
 
-    ``backbone`` picks a named spec; ``vit_config``/``hooks``/``widths``
-    override it (the tests use miniature dimensions). ``remat_vit``
-    checkpoints the ViT blocks in training.
+    ``backbone`` picks a named spec; ``vit_config``/``hooks``/``widths``/
+    ``hybrid_resnet_kwargs`` override it (the tests use miniature
+    dimensions). ``remat_vit`` checkpoints the ViT blocks in training; the
+    hybrid ignores it, as the JAX package does.
     """
 
     def __init__(self, backbone: str = "vitl16_384", features: int = 256,
-                 vit_config: ViTConfig | None = None, hooks=None, widths=None, remat_vit: bool = False):
+                 vit_config: ViTConfig | None = None, hooks=None, widths=None, remat_vit: bool = False,
+                 hybrid_resnet_kwargs=None):
         super().__init__()
         spec = DPT_BACKBONE_SPECS[backbone]
         vit_cfg = vit_config or VIT_CONFIGS[spec["vit"]]
@@ -104,9 +113,13 @@ class DPTFeatureExtractor(nn.Module):
         widths = tuple(widths) if widths is not None else spec["features"]
         self.patch = vit_cfg.patch
         self.pretrained = nn.Module()
-        self.pretrained.model = ViTBackbone(vit_cfg, hooks, remat=remat_vit)
-        for i in range(4):
-            setattr(self.pretrained, f"act_postprocess{i + 1}", _reassemble(i, vit_cfg.dim, widths[i]))
+        if backbone == HYBRID:
+            self.pretrained.model = HybridViTBackbone(vit_cfg, hooks, hybrid_resnet_kwargs)
+        else:
+            self.pretrained.model = ViTBackbone(vit_cfg, hooks, remat=remat_vit)
+        for i in range(4):  # the hybrid's first two maps are the trunk's stages
+            post = nn.Identity() if backbone == HYBRID and i < 2 else _reassemble(i, vit_cfg.dim, widths[i])
+            setattr(self.pretrained, f"act_postprocess{i + 1}", post)
         self.scratch = nn.Module()
         for n in range(1, 5):
             setattr(self.scratch, f"layer{n}_rn", nn.Conv2d(widths[n - 1], features, 3, padding=1, bias=False))
@@ -116,9 +129,12 @@ class DPTFeatureExtractor(nn.Module):
         B, _, H, W = x.shape
         gh, gw = H // self.patch, W // self.patch
         maps = []
-        for i, tokens in enumerate(self.pretrained.model(x)):
+        for i, tap in enumerate(self.pretrained.model(x)):
             post = getattr(self.pretrained, f"act_postprocess{i + 1}")
-            t = post[0](tokens)
+            if isinstance(post, nn.Identity):  # a trunk stage's map
+                maps.append(tap)
+                continue
+            t = post[0](tap)
             fmap = post[3](t.transpose(1, 2).reshape(B, t.shape[-1], gh, gw))
             if len(post) > 4:
                 fmap = post[4](fmap)

@@ -8,6 +8,11 @@ conv1x1-relu-conv3x3-relu-conv1x1-relu-conv1x1. Heads are ``nn.Sequential``
 with the reference checkpoint's indices (0, 2, 4, 6 with ReLUs between;
 0, 1, 2, 3 and an optional final activation without).
 
+Backbones: ``dpt_large`` (ViT-L/16), ``dpt_base`` (ViT-B/16) and
+``dpt_hybrid`` (a ResNetV2-50 trunk under ViT-B/16, ``models/hybrid.py``).
+``remat_vit`` checkpoints the ViT blocks of the first two in training; the
+hybrid ignores it, as the JAX package does.
+
 Public layout is NHWC as in the JAX package: images [B, H, W, 3] in [0, 1];
 center_fields [B, H, W, 2] (dy, dx) and sdf_maps [B, H, W], both f32.
 """
@@ -22,6 +27,7 @@ from unmore_tpu_torch.models.dpt import DPTFeatureExtractor
 BACKBONE_ALIASES = {
     "dpt_large": "vitl16_384",
     "dpt_base": "vitb16_384",
+    "dpt_hybrid": "vitb_rn50_384",
 }
 
 
@@ -57,16 +63,14 @@ def conv_head(in_ch: int, out_channels: int, use_relu: bool, final_act: str | No
 class ObjectnessNet(nn.Module):
     def __init__(self, backbone_type: str = "dpt_large", sdf_activation: str | None = "tanh",
                  use_bg_sdf: bool = True, features: int = 256, vit_config=None, hooks=None,
-                 widths=None, remat_vit: bool = False):
+                 widths=None, remat_vit: bool = False, hybrid_resnet_kwargs=None):
         super().__init__()
         self.sdf_activation, self.use_bg_sdf = sdf_activation, use_bg_sdf  # the SDF head's layout
         if backbone_type not in BACKBONE_ALIASES:
-            raise ValueError(
-                f"backbone_type {backbone_type!r} is not ported; choose one of {sorted(BACKBONE_ALIASES)}"
-            )
+            raise ValueError(f"unknown backbone_type {backbone_type!r}; choose one of {sorted(BACKBONE_ALIASES)}")
         self.backbone = DPTFeatureExtractor(
             BACKBONE_ALIASES[backbone_type], features, vit_config=vit_config, hooks=hooks, widths=widths,
-            remat_vit=remat_vit,
+            remat_vit=remat_vit, hybrid_resnet_kwargs=hybrid_resnet_kwargs,
         )
         self.center_field_prediction_head = conv_head(features, 2, use_relu=True)
         use_relu, final = sdf_head_layout(sdf_activation, use_bg_sdf)

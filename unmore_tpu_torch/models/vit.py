@@ -88,25 +88,29 @@ class PatchEmbed(nn.Module):
 
 class ViTBackbone(nn.Module):
     """forward(images [B, 3, H, W]) -> list of [B, 1 + h*w, C] token maps,
-    the outputs of blocks ``hooks[i]``; cls token at index 0."""
+    the outputs of blocks ``hooks[i]``; cls token at index 0. ``patch_embed``
+    replaces the 16x16 patch conv (the hybrid's trunk and projection)."""
 
-    def __init__(self, config: ViTConfig, hooks, remat: bool = False):
+    def __init__(self, config: ViTConfig, hooks, remat: bool = False, patch_embed: nn.Module | None = None):
         super().__init__()
         self.config = config
         self.hooks = tuple(hooks)
         self.remat = remat
         self.cls_token = nn.Parameter(torch.zeros(1, 1, config.dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, 1 + config.pretrain_grid**2, config.dim))
-        self.patch_embed = PatchEmbed(config)
+        self.patch_embed = PatchEmbed(config) if patch_embed is None else patch_embed
         self.blocks = nn.ModuleList(
             Block(config.dim, config.heads, config.mlp_dim) for _ in range(config.depth)
         )
 
     def forward(self, x):
+        return self.encode(self.patch_embed.proj(x))
+
+    def encode(self, grid):
+        """Patch embeddings [B, C, gh, gw] -> the hooked blocks' token maps."""
         cfg = self.config
-        B, _, H, W = x.shape
-        gh, gw = H // cfg.patch, W // cfg.patch
-        tokens = self.patch_embed.proj(x).flatten(2).transpose(1, 2)  # [B, gh*gw, C]
+        B, _, gh, gw = grid.shape
+        tokens = grid.flatten(2).transpose(1, 2)  # [B, gh*gw, C]
         g = cfg.pretrain_grid
         pos_grid = self.pos_embed[:, 1:].reshape(1, g, g, cfg.dim)
         if (gh, gw) != (g, g):
