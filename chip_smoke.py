@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in nine phases,
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in ten phases,
 each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
@@ -100,7 +100,36 @@ each printing one JSON line:
    inputs (``device_s``, ``host_s``, MFU); a narrow f32 hybrid on the card
    against the CPU (forward atol 1e-4, losses rtol 1e-5, gradient rel L2
    1e-3); bf16 against f32 at full width on one 256-crop chunk whose first 8
-   crops are phase 5's, beside phase 5's DPT-Large figures.
+   crops are phase 5's, beside phase 5's DPT-Large figures;
+10. dist: data parallelism (``unmore_tpu_torch/parallel``). A one-rank NCCL
+   group (``initialize`` given the address and one process; backend and NCCL
+   version printed) runs a DPT-Large stage-1 step's flat-gradient
+   ``all_reduce_mean_`` (equal bits) and one ``all_gather_objects``. Then two
+   ranks share the one card over gloo (NCCL refuses two ranks on one device),
+   spawned through ``parallel/mesh.py`` with a group timeout of 600 s and a
+   join timeout of 600 s that kills them and fails, each against one rank on
+   the same global batches: (a) DPT-Large at the ``script.sh`` recipe's
+   global batch 20 (10 a rank), 3 steps in f32 with TF32 off (first loss
+   rel 1e-6, first gradient rel L2 1e-4, parameters within 2.01 * steps * lr:
+   an Adam step moves a weight by at most ~1.004 lr in its first steps, either
+   way where its gradient is within rounding of zero; the later losses, which
+   the recipe's rate throws up by orders of magnitude, are reported), then
+   10 bf16 steps timed, fed by the host's stream (each rank keeps its rows);
+   (b) one f32 step of the ResNet-50 classifier (loss rel 1e-5; the flat
+   gradient as close to the float64 one, in rel L2, as twice one rank's f32
+   gradient is: BatchNorm at random initialisation makes it ill-posed;
+   running statistics atol 1e-5 of their scale); (c) the CAD at
+   full width, global batch 16 (8 a rank): one f32 step on the global
+   batch's draws with the one-rank run's decisions replayed (losses rel
+   1e-4, parameters 1e-6, BatchNorm statistics 1e-4), then 5 bf16 steps
+   timed with ``data_starved``; (d) discovery through the CLI on phase 3's
+   images and two more (phase 3's cuts, one image a group, f32, sticky
+   convergence, 5 boundary rounds, model chunks of 64 crops): the merged
+   ``discovery_results.json`` equal to the one-rank
+   run's, every decode launch of each rank equal to the plain version; (e)
+   scoring of those boxes through the CLI, the merged annotations equal to
+   the one-rank run's after sorting. Per-rank peaks, times and ``phase_s``
+   are printed as two processes sharing one card, not a scaling figure.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -472,6 +501,7 @@ def phase_main_path(device, kernel_counters):
     chunk_row = decode_row("main_path_chunk", *first_chunk, require_scored=False)
     emit({"phase": "kernel_main_path_chunk", "name": "fused_center_decode", "result": chunk_row})
     return {"objectness": objectness, "fns": fns, "images": images, "results": results, "launches": launches,
+            "cuts": cuts,
             "chunk_row": chunk_row, "gflop_per_crop": {"both_heads": both / 1e9, "classifier": cls / 1e9}}
 
 
@@ -2083,6 +2113,525 @@ def phase_hybrid(device, kernel_counters, discovered, dpt_large_bf16):
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+# two ranks share the one card over gloo (NCCL refuses two ranks on one device);
+# their times are of two processes on one card, not a scaling figure
+DIST_RANKS = 2
+DIST_JOIN_TIMEOUT_S = 600  # the ranks are killed, and the smoke fails, after this
+DIST_GROUP_TIMEOUT_S = 600  # a collective that waits longer raises in the rank
+DIST_F32_STEPS = 3
+DIST_BF16_STEPS = 10
+DIST_CAD_BF16_STEPS = 5
+DIST_FOLDER = Path("build") / "smoke_dist"
+# discovery in f32 runs ~40x slower than phase 3's bf16 group: 5 boundary
+# rounds of 50, model chunks of 64 crops (two f32 ranks of 256 overfill the card)
+DIST_STAGE2_CUTS = ("--n_round", "5", "--crop_chunk", "64")
+
+
+def dist_images():
+    """Phase 3's two images and two more seeded ones: with one image a
+    discovery group, each rank discovers two groups."""
+    return synthetic_images(seed=0) + synthetic_images(seed=5, sizes=((256, 256), (240, 320)))
+
+
+class MemoryCOCO(MemoryImages):
+    """``COCOImages``'s interface over :func:`dist_images` made in process (the
+    stage-2 CLIs' paths are not read: the card machine may lack PIL)."""
+
+    def __init__(self, *paths):
+        images = dist_images()
+        super().__init__(images, list(range(1, len(images) + 1)))
+
+    def image_id(self, idx):
+        return self.ids[idx]
+
+
+def dist_stage2_argv(run, center_thres, one_rank, device):
+    """The discovery and scoring CLIs' argv: phase 3's cuts and
+    :data:`DIST_STAGE2_CUTS`, one image a group, f32 (TF32 off), sticky
+    convergence, ``device`` for every rank."""
+    model = ["--device", str(device), "--dtype", "float32", "--sdf_activation", "tanh", "--use_bg_sdf",
+             "--coco_image_dir", "memory", "--coco_annotations", "memory", *(["--devices", "1"] if one_rank else [])]
+    cuts = ["--canvas_size", str(MAIN_PATH_CUTS["canvas_size"]), "--image_batch", "1",
+            "--max_proposals", str(MAIN_PATH_CUTS["max_proposals"]), "--max_splits", str(MAIN_PATH_CUTS["max_splits"]),
+            "--max_active", str(MAIN_PATH_CUTS["max_active"]), "--class_score_thres", "0.0",
+            "--center_score_max_thres", repr(center_thres), *DIST_STAGE2_CUTS]
+    return (model + cuts + ["--run_name", run],
+            model + ["--raw_annotations_path", f"results_reasoning/{run}/discovery_results.json"])
+
+
+@contextlib.contextmanager
+def stage2_in(folder):
+    """The stage-2 CLIs run in ``folder`` on :class:`MemoryCOCO`."""
+    import os
+
+    from unmore_tpu_torch.data import coco
+
+    real, cwd = coco.COCOImages, os.getcwd()
+    coco.COCOImages = MemoryCOCO
+    os.chdir(folder)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+        coco.COCOImages = real
+
+
+def dist_cad_setup():
+    """The CAD YAML at full width (batch 16 global), its solver and an
+    in-memory dataset function."""
+    from unmore_tpu_torch.cli import train_net
+    from unmore_tpu_torch.data.detection import DetectionDataset
+
+    train_json, files = cad_train_world(seed=1)
+    args = train_net.parse_args(["--config-file", CAD_CONFIG])
+    det_cfg, solver, _ = train_net.build_from_config(args)
+
+    def dataset(seed):
+        return DetectionDataset(train_json, {"": ""}, det_cfg.image_size, solver["min_sizes"], seed,
+                                read_image=files.get)
+
+    return det_cfg, solver, dataset
+
+
+def dist_inputs():
+    """The global batches every run of the phase takes: 3 objectness batches
+    and one classifier batch of 20 (phase 6's world), one CAD batch of 16."""
+    from unmore_tpu_torch.cli import train_net
+
+    images, masks = shape_world(seed=0, **TRAIN_WORLD)
+    obj, cls = objectness_worker(images, masks, 500), classifier_worker(images, masks, 600)
+    det_cfg, solver, dataset = dist_cad_setup()
+    cad = train_net.batch_workers(dataset, det_cfg, solver, 1)[0]()
+    cad.pop("n_gt_dropped")
+    return {"objectness": [obj() for _ in range(DIST_F32_STEPS)], "classifier": cls(), "cad": cad}
+
+
+def dist_objectness_trainer(device):
+    from unmore_tpu_torch.cli.common import build_objectness
+    from unmore_tpu_torch.config import ModelConfig, OptimConfig, TrainObjectnessConfig
+    from unmore_tpu_torch.train.objectness import ObjectnessTrainer
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    model = build_objectness(DptLarge, "float32", device).train()
+    init_like_flax(model, seed=7)
+    cfg = TrainObjectnessConfig(model=ModelConfig(dtype="float32"), optim=OptimConfig(), batch_size=TRAIN_BATCH)
+    return ObjectnessTrainer(model, cfg)
+
+
+def dist_classifier_trainer(device):
+    from unmore_tpu_torch.cli.common import build_classifier
+    from unmore_tpu_torch.config import OptimConfig
+    from unmore_tpu_torch.train.classifier import ClassifierTrainer
+    from unmore_tpu_torch.train.optim import init_like_flax
+
+    model = build_classifier("float32", device)
+    init_like_flax(model, seed=8)
+    return ClassifierTrainer(model, OptimConfig(), "float32")
+
+
+def dist_nccl_one_rank(device):
+    """A one-rank NCCL group (``initialize`` given the address and one
+    process): a DPT-Large stage-1 step's flat gradient through
+    ``all_reduce_mean_`` (equal bits: one rank), one step whose own
+    all-reduce runs on NCCL, one ``all_gather_objects``."""
+    import datetime
+    import socket
+
+    import torch
+
+    from unmore_tpu_torch.parallel import distributed as dist
+    from unmore_tpu_torch.train.objectness import to_device
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.initialize(f"127.0.0.1:{port}", 1, 0, timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    try:
+        trainer = dist_objectness_trainer(device)
+        trainer.bf16 = True
+        images, masks = shape_world(seed=0, **TRAIN_WORLD)
+        batch = to_device(objectness_worker(images, masks, 700)(), device)
+        trainer.flat.grad.zero_()
+        trainer.loss(batch)["total"].backward()
+        grad = trainer.flat.grad.clone()
+        reduced = dist.all_reduce_mean_(trainer.flat.grad)
+        sync(device)
+        equal = torch.equal(reduced, grad)
+        loss = float(trainer.train_step(batch)["total"])
+        gathered = dist.all_gather_objects({"rank": dist.process_index()})
+        row = {"backend": torch.distributed.get_backend(), "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+               "world_size": torch.distributed.get_world_size(), "flat_grad_elements": grad.numel(),
+               "all_reduce_mean_equal_bits": equal, "step_loss": loss, "all_gather_objects": gathered}
+    finally:
+        dist.shutdown()
+    del trainer, grad
+    torch.cuda.empty_cache()
+    if not (equal and gathered == [{"rank": 0}] and loss == loss):
+        fail(f"one-rank NCCL group: {row}")
+    return row
+
+
+def dist_references(device, inputs, center_thres):
+    """One rank on the whole global batches (the reference of the two-rank
+    runs): the objectness trainer's f32 losses, first gradient and final
+    parameters; the classifier's f32 step (loss, gradient, running
+    statistics); the CAD's f32 step (its decisions recorded); the stage-2
+    CLIs' files."""
+    import torch
+
+    from unmore_tpu_torch.cli import object_reasoning, object_scoring, train_net
+    from unmore_tpu_torch.train.objectness import to_device
+
+    ref, t0 = {}, time.perf_counter()
+    trainer = dist_objectness_trainer(device)
+    losses = []
+    for i, host in enumerate(inputs["objectness"]):
+        losses.append(float(trainer.train_step(to_device(host, device))["total"]))
+        if i == 0:
+            grad1 = trainer.flat.grad.cpu().clone()
+    ref["objectness"] = {"losses": losses, "grad1": grad1, "params": trainer.flat.data.cpu().clone()}
+    del trainer
+    trainer = dist_classifier_trainer(device)
+    loss = float(trainer.train_step(to_device(inputs["classifier"], device))["loss"])
+    ref["classifier"] = {"loss": loss, "grad": trainer.flat.grad.cpu().clone(),
+                         "grad64": dist_classifier_grad64(device, inputs["classifier"], trainer.flat.names),
+                         "stats": {k: v.cpu().clone() for k, v in trainer.stats.items()}}
+    del trainer
+    torch.cuda.empty_cache()
+    det_cfg, solver, _ = dist_cad_setup()
+    trainer = train_net.make_trainer(det_cfg, solver, device, "float32")
+    made = {}
+    with decisions(record=made):
+        out = trainer.train_step(to_device(inputs["cad"], device))
+    ref["cad"] = {"losses": {k: float(v) for k, v in out.items()}, "params": trainer.flat.data.cpu().clone(),
+                  "stats": trainer.stats.cpu().clone(), "decisions": _tree(made, lambda t: t.cpu())}
+    del trainer, made
+    torch.cuda.empty_cache()
+    ref["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    disc, score = dist_stage2_argv("one", center_thres, True, device)
+    with stage2_in(DIST_FOLDER):
+        object_reasoning.main(disc)
+        object_scoring.main(score)
+    ref["stage2_s"] = time.perf_counter() - t0
+    return ref
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dist_rank_stage1(device, inputs, ref, row_fn):
+    """(a) The objectness trainer on its rows: f32 steps against the one-rank
+    run (first gradient, losses, parameters), then bf16 steps timed, fed by
+    the host's stream through prefetch threads."""
+    import statistics
+
+    import torch
+
+    from unmore_tpu_torch.data.prefetch import PrefetchIterator
+    from unmore_tpu_torch.parallel import distributed as dist
+    from unmore_tpu_torch.train.objectness import to_device
+
+    trainer = dist_objectness_trainer(device)
+    initial = trainer.flat.data.clone()
+    losses = []
+    for i, host in enumerate(inputs["objectness"]):
+        losses.append(float(trainer.train_step(to_device(dist.local_rows(host), device))["total"]))
+        if i == 0:
+            g, g_ref = trainer.flat.grad.cpu(), ref["grad1"]
+            grad_rel_l2 = rel_l2(g, g_ref)
+    p, p_ref = trainer.flat.data.cpu(), ref["params"]
+    moved, moved_ref = p - initial.cpu(), p_ref - initial.cpu()
+    lr = trainer.cfg.optim.learning_rate
+    f32 = {"steps": DIST_F32_STEPS, "losses": losses, "losses_one_rank": ref["losses"],
+           "first_loss_rel_diff": _rel(losses[0], ref["losses"][0]),
+           "max_rel_loss_diff": max(_rel(a, b) for a, b in zip(losses, ref["losses"])),
+           "first_grad_rel_l2": grad_rel_l2, "params_max_abs_diff": float((p - p_ref).abs().max()),
+           "params_update_rel_l2": rel_l2(moved, moved_ref),
+           "params_share_differing_by_1e-7": float(((p - p_ref).abs() > 1e-7).float().mean()),
+           "params_checksum": float(p.double().sum()),
+           "tolerance": {"first_loss_rel_diff": 1e-6, "first_grad_rel_l2": 1e-4,
+                         "params_max_abs_diff": 2.01 * DIST_F32_STEPS * lr,
+                         "why": "an Adam step moves a weight by at most ~1.004 lr in its first three steps, "
+                                "either way where its gradient is within rounding of zero; after the first "
+                                "step the recipe's rate throws the loss up by orders of magnitude and two runs "
+                                "drift apart, so the later losses are reported, not bounded"}}
+    tol = f32["tolerance"]
+    ok = all(f32[k] <= tol[k] for k in tol if k != "why")
+    del p, p_ref, moved, moved_ref, initial, g, g_ref
+
+    trainer.bf16 = True
+    images, masks = shape_world(seed=0, **TRAIN_WORLD)
+    prefetch = PrefetchIterator(worker_fns=[row_fn(objectness_worker(images, masks, 100 + w))
+                                            for w in range(TRAIN_WORKERS)])
+    seconds = []
+    try:
+        peak_bytes(device, reset=True)
+        for _ in range(DIST_BF16_STEPS):
+            host = next(prefetch)
+            t0 = time.perf_counter()
+            out = trainer.train_step(to_device(host, device))
+            sync(device)
+            seconds.append(time.perf_counter() - t0)
+        if float(out["total"]) != float(out["total"]):
+            fail("two-rank bf16 objectness step: non-finite loss")
+    finally:
+        prefetch.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return ok, {"f32": f32, "bf16": {"steps": DIST_BF16_STEPS, "rows_per_rank": TRAIN_BATCH // DIST_RANKS,
+                                      "step_ms": [s * 1e3 for s in seconds],
+                                      "step_ms_median_from_3": statistics.median(seconds[2:]) * 1e3,
+                                      "starved_fraction": prefetch.starved_fraction,
+                                      "max_memory_allocated_bytes": peak_bytes(device)}}
+
+
+def dist_classifier_grad64(device, batch, names):
+    """The classifier's gradient on the whole batch in float64, at the
+    trainer's initial weights, flat in ``names``' order."""
+    import torch
+
+    from unmore_tpu_torch.train.classifier import bce_loss
+    from unmore_tpu_torch.train.objectness import decode_wire_batch, to_device
+
+    model = dist_classifier_trainer(device).model.double()
+    b = decode_wire_batch(to_device(batch, device))
+    bce_loss(model(b["image"].double())[:, 0], b["label"].double()).backward()
+    params = dict(model.named_parameters())
+    return torch.cat([params[n].grad.reshape(-1) for n in names]).cpu()
+
+
+def dist_rank_classifier(device, inputs, ref):
+    """(b) The classifier's f32 step on its rows: loss, flat gradient and
+    BatchNorm running statistics (global-batch statistics) against one rank.
+    BatchNorm at random initialisation makes the f32 gradient ill-posed, so
+    the gradient is held against the float64 one, as close as one rank's."""
+    import torch
+
+    from unmore_tpu_torch.parallel import distributed as dist
+    from unmore_tpu_torch.train.objectness import to_device
+
+    trainer = dist_classifier_trainer(device)
+    loss = float(trainer.train_step(to_device(dist.local_rows(inputs["classifier"]), device))["loss"])
+    g = trainer.flat.grad.cpu()
+    diffs = {k: float((v.cpu() - ref["stats"][k]).abs().max()) for k, v in trainer.stats.items()}
+    scale = max(float(v.abs().max()) for v in ref["stats"].values())
+    one_rank_vs_f64 = rel_l2(ref["grad"], ref["grad64"])
+    row = {"loss": loss, "loss_one_rank": ref["loss"], "loss_rel_diff": _rel(loss, ref["loss"]),
+           "grad_rel_l2_vs_one_rank": rel_l2(g, ref["grad"]), "grad_rel_l2_vs_f64": rel_l2(g, ref["grad64"]),
+           "one_rank_grad_rel_l2_vs_f64": one_rank_vs_f64,
+           "running_stats_max_abs_diff": max(diffs.values()), "running_stats_max_abs": scale,
+           "tolerance": {"loss_rel_diff": 1e-5, "grad_rel_l2_vs_f64": 2 * one_rank_vs_f64 + 1e-6,
+                         "running_stats_max_abs_diff": 1e-5 * max(scale, 1.0)}}
+    del trainer
+    torch.cuda.empty_cache()
+    return all(row[k] <= v for k, v in row["tolerance"].items()), row
+
+
+def dist_rank_cad(device, inputs, ref, row_fn):
+    """(c) The CAD at full width on its 8 rows: one f32 step with the global
+    batch's draws and the one-rank run's decisions replayed (losses,
+    parameters, BatchNorm statistics), then bf16 steps timed, fed by the
+    host's stream through prefetch threads."""
+    import statistics
+
+    import torch
+
+    from unmore_tpu_torch.cli import train_net
+    from unmore_tpu_torch.data.prefetch import PrefetchIterator
+    from unmore_tpu_torch.parallel import distributed as dist
+    from unmore_tpu_torch.train.objectness import to_device
+
+    det_cfg, solver, dataset = dist_cad_setup()
+    trainer = train_net.make_trainer(det_cfg, solver, device, "float32")
+    b, r = solver["ims_per_batch"] // DIST_RANKS, dist.process_index()
+    mine = _tree(ref["decisions"], lambda t: t[r * b:(r + 1) * b])
+    with decisions(replay=mine, device=device):
+        out = trainer.train_step(to_device(dist.local_rows(inputs["cad"]), device))
+    losses = {k: float(v) for k, v in out.items()}
+    f32 = {"losses": losses, "losses_one_rank": ref["losses"],
+           "max_rel_loss_diff": max(_rel(losses[k], ref["losses"][k]) for k in losses),
+           "params_max_abs_diff": float((trainer.flat.data.cpu() - ref["params"]).abs().max()),
+           "stats_max_abs_diff": float((trainer.stats.cpu() - ref["stats"]).abs().max()),
+           "stats_max_abs": float(ref["stats"].abs().max()), "params_checksum": float(trainer.flat.data.double().sum()),
+           "tolerance": {"max_rel_loss_diff": 1e-4, "params_max_abs_diff": 1e-6, "stats_max_abs_diff": 1e-4}}
+    ok = all(f32[k] <= f32["tolerance"][k] for k in ("max_rel_loss_diff", "params_max_abs_diff",
+                                                      "stats_max_abs_diff"))
+    trainer.bf16 = True
+    prefetch = PrefetchIterator(worker_fns=train_net.batch_workers(dataset, det_cfg, solver, CAD_TRAIN_WORKERS))
+    seconds = []
+    try:
+        peak_bytes(device, reset=True)
+        for _ in range(DIST_CAD_BF16_STEPS):
+            host = next(prefetch)
+            host.pop("n_gt_dropped", None)
+            t0 = time.perf_counter()
+            out = trainer.train_step(to_device(host, device))
+            sync(device)
+            seconds.append(time.perf_counter() - t0)
+        if float(out["total"]) != float(out["total"]):
+            fail("two-rank bf16 CAD step: non-finite loss")
+    finally:
+        prefetch.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return ok, {"f32": f32, "bf16": {"steps": DIST_CAD_BF16_STEPS, "rows_per_rank": b,
+                                      "step_ms": [s * 1e3 for s in seconds],
+                                      "step_ms_median_from_2": statistics.median(seconds[1:]) * 1e3,
+                                      "data_starved": prefetch.starved_fraction,
+                                      "max_memory_allocated_bytes": peak_bytes(device)}}
+
+
+def dist_rank_stage2(device, center_thres):
+    """(d) Discovery and (e) scoring through the CLIs' entry on this rank's
+    shard; every decode launch is recorded and held against the plain
+    version afterwards."""
+    import torch
+
+    from unmore_tpu_torch.cli import object_reasoning, object_scoring
+    from unmore_tpu_torch.ops.decode import fused_center_decode
+    from unmore_tpu_torch.ops.fields import center_singularity_scores
+    from unmore_tpu_torch.reasoning import engine
+
+    calls, real = [], engine.fused_center_decode
+
+    def record(sdf, center, *args, **kwargs):  # the engine takes its decode when the CLI builds it
+        out = real(sdf, center, *args, **kwargs)
+        calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
+        return out
+
+    engine.fused_center_decode = record
+    disc, score = dist_stage2_argv("two", center_thres, False, device)
+    fused_center_decode.launches = 0
+    try:
+        with stage2_in(DIST_FOLDER):
+            t0 = time.perf_counter()
+            object_reasoning.main(disc)
+            discovery_s = time.perf_counter() - t0
+            launches = fused_center_decode.launches
+            t0 = time.perf_counter()
+            object_scoring.main(score)
+            scoring_s = time.perf_counter() - t0
+    finally:
+        engine.fused_center_decode = real
+    errors = []
+    for sdf, center, got in calls:
+        want = center_singularity_scores(sdf, center)
+        pos = want[0] > 1e-4
+        if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
+            fail("the decode kernel's union or argmax differs from the plain version on a rank")
+        errors.append(float((got[0] - want[0]).abs().max()))
+    ok = launches > 0 and len(calls) == launches and all(e == 0.0 for e in errors)
+    del calls
+    torch.cuda.empty_cache()
+    return ok, {"discovery_s": discovery_s, "scoring_s": scoring_s, "decode_launches": launches,
+                "decode_max_abs_err": max(errors, default=None)}
+
+
+def dist_rank(folder, device):
+    """One of the phase's two ranks on the one card (gloo on CUDA tensors)."""
+    import datetime
+
+    import torch
+
+    from unmore_tpu_torch.parallel import distributed as dist
+
+    dist.initialize(backend="gloo", timeout=datetime.timedelta(seconds=DIST_GROUP_TIMEOUT_S))
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    folder = Path(folder)
+    inputs = torch.load(folder / "inputs.pt", weights_only=False)
+    ref = torch.load(folder / "ref.pt", weights_only=False)
+    t0 = time.perf_counter()
+
+    def rows(make_batch):
+        return lambda: dist.local_rows(make_batch())
+
+    out, ok = {"rank": dist.process_index()}, {}
+    parts = (("stage1", "stage1_dpt_large", lambda: dist_rank_stage1(device, inputs, ref["objectness"], rows)),
+             ("classifier", "classifier_resnet50", lambda: dist_rank_classifier(device, inputs, ref["classifier"])),
+             ("cad", "cad", lambda: dist_rank_cad(device, inputs, ref["cad"], rows)),
+             ("stage2", "stage2", lambda: dist_rank_stage2(device, inputs["center_thres"])))
+    for check, key, run in parts:
+        ok[check], out[key] = run()
+        print(f"dist rank {out['rank']}: {check} {'ok' if ok[check] else 'FAILED'}", flush=True)
+    out["checks"], out["rank_s"] = ok, time.perf_counter() - t0
+    out["max_memory_allocated_bytes"] = peak_bytes(device)
+    (folder / f"rank{dist.process_index()}.json").write_text(json.dumps(out))
+
+
+def phase_dist(device, center_thres):
+    """Phase 10: data parallelism. A one-rank NCCL group; then two ranks on
+    the one card over gloo (spawned through ``parallel/mesh.py``) against one
+    rank on the same global batches: stage 1 (DPT-Large, the recipe's batch
+    20, 10 a rank), the classifier, the CAD (batch 16, 8 a rank), discovery
+    and scoring through the CLIs."""
+    import shutil
+
+    import torch
+
+    from unmore_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    nccl = dist_nccl_one_rank(device)
+    shutil.rmtree(DIST_FOLDER, ignore_errors=True)
+    DIST_FOLDER.mkdir(parents=True)
+    inputs = dict(dist_inputs(), center_thres=center_thres)
+    torch.save(inputs, DIST_FOLDER / "inputs.pt")
+    ref = dist_references(device, inputs, center_thres)
+    torch.save({k: v for k, v in ref.items() if k not in ("train_s", "stage2_s")}, DIST_FOLDER / "ref.pt")
+    one_rank_s = {"train_s": ref["train_s"], "stage2_s": ref["stage2_s"]}
+    del ref
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = mesh.launch(dist_rank, (str(DIST_FOLDER), str(device)), DIST_RANKS, timeout=DIST_JOIN_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"a rank of phase dist exited with code {rc}")
+    ranks = [json.loads((DIST_FOLDER / f"rank{r}.json").read_text()) for r in range(DIST_RANKS)]
+    problems = [f"rank {r['rank']}: {k}" for r in ranks for k, v in r["checks"].items() if not v]
+    for key in ("stage1_dpt_large", "cad"):
+        sums = {r[key]["f32"]["params_checksum"] for r in ranks}
+        if len(sums) != 1:
+            problems.append(f"{key}: the ranks' parameters differ ({sums})")
+    out = DIST_FOLDER / "results_reasoning"
+    one = json.loads((out / "one" / "discovery_results.json").read_text())
+    two = json.loads((out / "two" / "discovery_results.json").read_text())
+    if two != one:
+        problems.append("merged discovery_results.json differs from the one-rank run")
+
+    def key(a):
+        return a["image_id"], tuple(a["bbox"])
+
+    s_one = sorted(json.loads((out / "one" / "object_discovery_with_scores.json").read_text()), key=key)
+    s_two = sorted(json.loads((out / "two" / "object_discovery_with_scores.json").read_text()), key=key)
+    if s_two != s_one:
+        problems.append("merged object_discovery_with_scores.json differs from the one-rank run")
+    partials = sorted(p.name for p in (out / "two").iterdir() if p.suffix == ".jsonl")
+    if partials != ["partial_results_p0.jsonl", "partial_results_p1.jsonl", "scoring_partial_p0.jsonl",
+                    "scoring_partial_p1.jsonl"]:
+        problems.append(f"partial files {partials}")
+    launches = {f"rank{r['rank']}": r["stage2"]["decode_launches"] for r in ranks}
+    emit({"phase": "dist", "note": "two ranks sharing one card over gloo: times of two processes on one card, "
+                                   "not a scaling figure",
+          "nccl_one_rank": nccl, "ranks": DIST_RANKS, "backend_two_ranks": "gloo (CUDA tensors)",
+          "images": [list(im.shape[:2]) for im in dist_images()], "boxes": sum(len(v) for v in one.values()),
+          "annotations": len(s_one), "discovery_equal": two == one, "scoring_equal": s_two == s_one,
+          "partial_files": partials, "decode_launches_per_rank": launches, "one_rank_s": one_rank_s,
+          "ranks_s": ranks_s, "per_rank": ranks, "checks_failed": problems,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        fail(f"phase dist: {problems}")
+    shutil.rmtree(DIST_FOLDER)
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2123,14 +2672,17 @@ def main():
     phase_cad(device, smi)
     phase_cad_train(device, smi)
     hybrid_launches = phase_hybrid(device, counters, main_path["results"], bf16)
+    dist_launches = phase_dist(device, main_path["cuts"]["center_score_max_thres"])
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{
         "name": "fused_center_decode", "route": "cuda", "source": KERNEL_SOURCES["decode"],
         "replaces": replaces_of(KERNEL_SOURCES["decode"]),
-        "launches": launches["fused_center_decode"] + hybrid_launches["fused_center_decode"],
+        "launches": launches["fused_center_decode"] + hybrid_launches["fused_center_decode"]
+        + sum(dist_launches.values()),
         "launches_by_path": {"dpt_large": launches["fused_center_decode"],
-                             "dpt_hybrid": hybrid_launches["fused_center_decode"]},
+                             "dpt_hybrid": hybrid_launches["fused_center_decode"],
+                             **{f"dist_{k}": v for k, v in dist_launches.items()}},
         "max_abs_err": max(r["max_abs_err"] for r in (*kernel_rows.values(), chunk_row)),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,

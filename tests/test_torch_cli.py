@@ -50,10 +50,9 @@ def coco(tmp_path):
 ARGS = ["--device", "cpu", "--dtype", "float32", "--sdf_activation", "tanh", "--use_bg_sdf", "--analyze_cc",
         "--image_size", "32", "--canvas_size", "96", "--max_proposals", "64", "--max_splits", "64",
         "--max_active", "64", "--crop_chunk", "32", "--crop_chunk_tail", "16", "--exist_chunk", "64",
-        "--n_round", "2", "--class_score_thres", "0", "--run_name", "smoke",
+        "--n_round", "2", "--class_score_thres", "0", "--run_name", "smoke", "--devices", "1",
         # flags of the TPU build: accepted and ignored
-        "--pallas_decode", "on", "--boundary_segment", "4", "--vit_pack", "2", "--devices", "4",
-        "--max_restarts", "0"]
+        "--pallas_decode", "on", "--boundary_segment", "4", "--vit_pack", "2", "--max_restarts", "0"]
 
 
 def test_cli_writes_the_contract_files_and_resumes(coco, monkeypatch):
@@ -87,9 +86,9 @@ def test_help_names_the_ignored_flags(capsys):
     for flag in ("--pallas_decode", "--boundary_segment", "--vit_pack", "--devices", "--gpu_index",
                  "--max_restarts", "--hang_timeout_min", "--busy_hang_timeout_min"):
         assert flag in text
-    # five flags of the TPU build; --max_restarts and --hang_timeout_min supervise the run, and
-    # --gpu_index picks the card
-    assert text.count("ignored by this build") >= 5
+    # four flags of the TPU build; --max_restarts and --hang_timeout_min supervise the run, and
+    # --devices and --gpu_index pick the cards
+    assert text.count("ignored by this build") >= 4
 
 
 def test_partial_plumbing_matches_the_jax_package(tmp_path):

@@ -9,6 +9,8 @@ must be equal; boxes agree to 1e-3 (sums in the boundary stats run in
 another order in the two frameworks).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -94,11 +96,16 @@ def assert_same_results(got, want):
             np.testing.assert_allclose(g[key], np.asarray(w[key]), atol=1e-3)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_engine(**kwargs):
+    """One JAX engine a config: cases with equal configs share its compiled programs."""
+    return JaxEngine(jax_objectness, jax_classifier, JaxConfig(**kwargs))
+
+
 def run_both(worlds, **overrides):
     kwargs = dict(BASE, **overrides)
-    jax_engine = JaxEngine(jax_objectness, jax_classifier, JaxConfig(**kwargs))
     port = ObjectDiscoveryEngine(torch_objectness, torch_classifier, ReasoningConfig(**kwargs), device="cpu")
-    return port.discover_batch(worlds), jax_engine.discover_batch(worlds)
+    return port.discover_batch(worlds), jax_engine(**kwargs).discover_batch(worlds)
 
 
 A, B = (30, 60, 100, 140), (100, 60, 170, 140)

@@ -316,9 +316,10 @@ def test_scoring_cli_matches_the_jax_cli_resumes_and_feeds_post_process(coco, ti
     base = ["--coco_image_dir", "images", "--coco_annotations", "instances.json", *SCORING_ARGS,
             "--objectness_resume", obj, "--binary_classifier_resume", cls,
             # flags of the TPU build: accepted and ignored
-            "--devices", "2", "--vit_pack", "2", "--gpu_index", "1", "--busy_hang_timeout_min", "1"]
-    _load_script("object_scoring").main(base + ["--raw_annotations_path", runs["jax"]])
-    argv = base + ["--device", "cpu", "--raw_annotations_path", runs["port"]]
+            "--vit_pack", "2", "--gpu_index", "1", "--busy_hang_timeout_min", "1"]
+    # the JAX CLI over two of its CPU devices, the port on one rank: results do not depend on the count
+    _load_script("object_scoring").main(base + ["--devices", "2", "--raw_annotations_path", runs["jax"]])
+    argv = base + ["--devices", "1", "--device", "cpu", "--raw_annotations_path", runs["port"]]
     object_scoring.main(argv)
     assert "timing split: device" in capsys.readouterr().out
     port_dir = coco / "results_reasoning" / "port"

@@ -153,12 +153,19 @@ def test_each_loss_term_matches_jax(sdf_loss, center_loss):
                                float(jax_classifier.bce_loss(jnp.asarray(pred), jnp.asarray(target))), atol=1e-6)
 
 
-def flax_grads(flax_model, params, batch, jax_cfg):
-    def loss_fn(p):
-        b = jax_objectness.decode_wire_batch(batch)
-        return jax_objectness.objectness_losses(flax_model.apply({"params": p}, b["image"]), b, jax_cfg)["total"]
+@functools.lru_cache(maxsize=None)
+def flax_grad_fn(jax_cfg):
+    """The JAX gradient of the total loss, jitted once for the module."""
 
-    return jax.device_get(jax.jit(jax.grad(loss_fn))(params))
+    def loss_fn(p, batch):
+        b = jax_objectness.decode_wire_batch(batch)
+        return jax_objectness.objectness_losses(FLAX_MODEL.apply({"params": p}, b["image"]), b, jax_cfg)["total"]
+
+    return jax.jit(jax.grad(loss_fn))
+
+
+def flax_grads(params, batch, jax_cfg):
+    return jax.device_get(flax_grad_fn(jax_cfg)(params, batch))
 
 
 @pytest.mark.parametrize("remat_vit", [False, True])
@@ -167,7 +174,7 @@ def test_gradients_after_one_step_match_jax(flax_model, remat_vit):
     if remat_vit:
         trainer = ObjectnessTrainer(port_model(flax_params(), remat_vit=True), trainer.cfg)
     batch = make_batch(3)
-    want = flax_grads(flax_model, state.params, as_jax(batch), configs()[1])
+    want = flax_grads(state.params, as_jax(batch), configs()[1])
     trainer.flat.grad.zero_()
     trainer.loss(as_torch(batch))["total"].backward()
     got = trainer.params_tree(trainer.flat.grad)
@@ -195,6 +202,17 @@ def random_tree(like, seed, scale):
     return jax.tree_util.tree_map(lambda a: (rng.randn(*np.shape(a)) * scale).astype(np.float32), like)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_update(tx):
+    """optax's update and apply of ``tx``, jitted once per optimizer."""
+
+    def update(grads, opt_state, params):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    return jax.jit(update)
+
+
 @pytest.mark.parametrize("optimizer", OPTIMS)
 def test_optimizer_update_from_equal_gradients(flax_model, optimizer):
     state, _, tx, trainer = pair(flax_model, optimizer)
@@ -203,8 +221,7 @@ def test_optimizer_update_from_equal_gradients(flax_model, optimizer):
     opt_state = tx.init(params)
     for k in range(3):  # crosses the milestone at 2
         grads = random_tree(params, 10 + k, 1e-2)
-        updates, opt_state = tx.update(grads, opt_state, params)
-        params = optax.apply_updates(params, updates)
+        params, opt_state = jax_update(tx)(grads, opt_state, params)
         trainer.flat.grad.copy_(trainer.params_flat(grads))
         trainer.opt.step()
         got = trainer.params_tree(trainer.flat.data)

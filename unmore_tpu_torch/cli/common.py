@@ -17,22 +17,26 @@ seeded generator.
 from __future__ import annotations
 
 import contextlib
+import datetime
 import hashlib
 import json
 import math
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 from unmore_tpu_torch import resolve_device
+from unmore_tpu_torch.cli import supervisor
 from unmore_tpu_torch.models.convert import (
     classifier_state_dict_from_flax, load_objectness_state_dict, load_torch_checkpoint,
     objectness_state_dict_from_flax,
 )
 from unmore_tpu_torch.models.objectness import ObjectnessNet
 from unmore_tpu_torch.models.resnet import BinaryClassifier
+from unmore_tpu_torch.parallel import distributed, mesh
 from unmore_tpu_torch.train.checkpoints import try_msgpack_checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -142,9 +146,51 @@ class StageTimer:
             json.dump(summary, f, indent=2)
 
 
+# the stage-2 ranks meet once, at the gather after their shards, and one may
+# finish its shard hours before another
+STAGE2_GATHER_TIMEOUT = datetime.timedelta(hours=12)
+
+
 def device_name(args) -> str:
-    """The stage CLIs' device: ``--device``, else CUDA card ``--gpu_index``."""
-    return args.device or f"cuda:{args.gpu_index}"
+    """The stage CLIs' device: ``--device``; else this rank's card over
+    several ranks, else CUDA card ``--gpu_index``."""
+    if args.device:
+        return args.device
+    if distributed.process_count() > 1:
+        return str(distributed.local_device())
+    return f"cuda:{args.gpu_index}"
+
+
+def setup_device(args) -> torch.device:
+    """:func:`device_name` resolved (a missing card raises) and made the
+    current CUDA device; TF32 off, so that f32 means f32 in cuDNN
+    convolutions and cuBLAS matmuls."""
+    device = resolve_device(device_name(args))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def launch_local_ranks(main, raw_argv: list, n_local: int) -> None:
+    """Unless a launcher started this process: with ``n_local`` > 1 run
+    ``main(raw_argv)`` in that many spawned ranks of this host and exit with
+    their exit code; else return."""
+    if n_local > 1 and not mesh.launched():
+        sys.exit(mesh.launch(main, (raw_argv,), n_local))
+
+
+def pin_run_name(args, raw_argv: list, default: str) -> list:
+    """``raw_argv`` with ``--run_name`` set (``default`` when it is not
+    given), so that every rank and every restart writes to one folder. In a
+    rank that an outside launcher started the name must be given: the ranks
+    could not agree on a time stamp."""
+    if args.run_name is None:
+        if mesh.launched():
+            raise SystemExit("several ranks need --run_name, so that they write to one result folder")
+        args.run_name = default
+    return [*supervisor.strip_flag(raw_argv, "--run_name", True), "--run_name", args.run_name]
 
 
 def partial_fingerprint(args_like, input_paths, skip=()):

@@ -1,4 +1,4 @@
-"""Stage-2 object discovery CLI on one CUDA device.
+"""Stage-2 object discovery CLI on one or several CUDA cards.
 
     python -m unmore_tpu_torch.cli.object_reasoning --coco_image_dir DIR \\
         --coco_annotations instances.json --sdf_activation tanh --use_bg_sdf \\
@@ -7,9 +7,14 @@
 
 Same flags and files as the JAX package's ``object_reasoning.py``:
 ``results_reasoning/<run_name>/configs_object_reasoning.json``, a
-per-group ``partial_results_p0.jsonl`` stamped with an input fingerprint
-(a rerun skips the images it holds), ``discovery_results.json`` (image_id
--> [N, 4] xyxy boxes) and ``stage_timings.json``. Checkpoints are the JAX
+per-group ``partial_results_p<rank>.jsonl`` stamped with an input
+fingerprint (a rerun skips the images it holds), ``discovery_results.json``
+(image_id -> [N, 4] xyxy boxes) and ``stage_timings.json``. ``--devices N``
+runs N ranks, one a card (-1, the default: every visible card; with
+``--device cpu``, N ranks on the CPU), spawned here unless a launcher
+(torchrun, or the JAX package's ``JAX_*`` variables) started them; each
+rank discovers its strided shard of the images and rank 0 writes the
+merged files. Checkpoints are the JAX
 trainers' msgpack files or torch ``.ckpt`` / state_dict files; without one
 the model gets seeded random weights. ``--max_restarts N`` runs the CLI as
 a supervised child that is relaunched after a crash or a hang and resumes
@@ -35,9 +40,11 @@ IGNORED = "accepted for compatibility and ignored by this build"
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--gpu_index", type=int, default=0, help="CUDA card to run on (with the default --device)")
+    p.add_argument("--gpu_index", type=int, default=0,
+                   help="CUDA card of a one-rank run (--devices 1, with the default --device)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device; default cuda:<gpu_index>; 'cpu' runs the plain versions of the kernels")
+                   help="torch device of every rank; default: the rank's card (cuda:<gpu_index> on one rank); "
+                        "'cpu' runs the plain versions of the kernels")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights used without checkpoints")
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--image_size", type=int, default=128)
@@ -79,7 +86,8 @@ def parse_args(argv=None):
                    help=IGNORED + " (the CUDA decode kernel runs for CUDA tensors)")
     p.add_argument("--boundary_segment", type=int, default=0, help=IGNORED)
     p.add_argument("--vit_pack", type=int, default=1, help=IGNORED)
-    p.add_argument("--devices", type=int, default=-1, help=IGNORED + " (one device)")
+    p.add_argument("--devices", type=int, default=-1,
+                   help="cards to run on, one rank each (-1: every visible card); ranks on the CPU with --device cpu")
     supervisor.add_flags(p, IGNORED)
     return p.parse_args(argv)
 
@@ -90,30 +98,33 @@ def default_run_name(args) -> str:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.max_restarts > 0:
-        # pin the run name, so that every restart finds the partial file
-        # in one result folder instead of starting a new timestamped one
-        if args.run_name is None:
-            args.run_name = default_run_name(args)
-        raw = list(argv) if argv is not None else sys.argv[1:]
-        raw = supervisor.strip_flag(raw, "--run_name", True) + ["--run_name", args.run_name]
+    raw = list(argv) if argv is not None else sys.argv[1:]
+
+    from unmore_tpu_torch.cli.common import launch_local_ranks, pin_run_name
+    from unmore_tpu_torch.parallel import mesh
+
+    n_local = 1 if mesh.launched() else mesh.local_ranks(args.devices, args.device)
+    if n_local > 1 or args.max_restarts > 0 or mesh.launched():
+        # pin the run name, so that every rank and every restart finds its
+        # partial file in one result folder, not a new timestamped one
+        raw = pin_run_name(args, raw, default_run_name(args))
+    launch_local_ranks(main, raw, n_local)
+    if args.max_restarts > 0:  # each rank supervises its own child
         sys.exit(supervisor.run_supervised(__spec__.name, raw, args.max_restarts, args.hang_timeout_min))
 
-    import torch
-
-    from unmore_tpu_torch import resolve_device
     from unmore_tpu_torch.cli.common import (
-        NpEncoder, StageTimer, build_classifier, build_objectness, device_name, init_random_variables,
+        STAGE2_GATHER_TIMEOUT, NpEncoder, StageTimer, build_classifier, build_objectness, init_random_variables,
         load_classifier_weights, load_objectness_weights, load_partial_jsonl, make_apply_fns,
-        partial_fingerprint,
+        partial_fingerprint, setup_device,
     )
     from unmore_tpu_torch.data.coco import COCOImages
+    from unmore_tpu_torch.parallel import distributed as dist
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
 
-    device = resolve_device(device_name(args))
-    # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks' group is made at the gather after their shards, so that a
+    # restarted rank still joins it
+    dist.initialize(timeout=STAGE2_GATHER_TIMEOUT)
+    device = setup_device(args)
 
     if args.run_name is None:
         args.run_name = default_run_name(args)
@@ -121,8 +132,9 @@ def main(argv=None):
         args.run_name += f"_{args.start_idx}_{args.end_idx}"
     result_folder = os.path.join("results_reasoning", args.run_name)
     os.makedirs(result_folder, exist_ok=True)
-    with open(os.path.join(result_folder, "configs_object_reasoning.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if dist.is_main():
+        with open(os.path.join(result_folder, "configs_object_reasoning.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
     print("result_folder", result_folder)
 
     objectness = build_objectness(args, args.dtype, device)
@@ -155,11 +167,12 @@ def main(argv=None):
         sticky_convergence=not args.reference_rounds,
     )
     engine = ObjectDiscoveryEngine(objectness_fn, classifier_fn, cfg, device=device)
-    print(f"device {device} (images per dispatch: {engine.image_slots})")
+    print(f"rank {dist.process_index()}/{dist.process_count()} on {device} "
+          f"(images per dispatch: {engine.image_slots})")
 
     dataset = COCOImages(args.coco_image_dir, args.coco_annotations, args.start_idx, args.end_idx)
-    indices = np.arange(len(dataset))
-    part_path = os.path.join(result_folder, "partial_results_p0.jsonl")
+    indices = dist.host_shard_indices(len(dataset))
+    part_path = os.path.join(result_folder, f"partial_results_p{dist.process_index()}.jsonl")
     fp = partial_fingerprint(args, [args.objectness_resume, args.binary_classifier_resume])
     done_ids, results = load_partial_jsonl(part_path, "boxes", fingerprint=fp)
     if done_ids:
@@ -188,11 +201,16 @@ def main(argv=None):
         with open(part_path, "a") as f:
             f.write("".join(line + "\n" for line in part_lines))
 
-    out_path = os.path.join(result_folder, "discovery_results.json")
-    with open(out_path, "w") as f:
-        json.dump(results, f, indent=2, cls=NpEncoder)
-    timer.dump(os.path.join(result_folder, "stage_timings.json"))
-    print("wrote", out_path)
+    # rank 0 writes the one contract JSON, filled in rank order
+    merged = {}
+    for part in dist.all_gather_objects(results):
+        merged.update(part)
+    if dist.is_main():
+        out_path = os.path.join(result_folder, "discovery_results.json")
+        with open(out_path, "w") as f:
+            json.dump(merged, f, indent=2, cls=NpEncoder)
+        timer.dump(os.path.join(result_folder, "stage_timings.json"))
+        print("wrote", out_path)
 
 
 if __name__ == "__main__":

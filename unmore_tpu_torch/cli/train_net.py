@@ -1,5 +1,5 @@
-"""CAD detector training and evaluation CLI on one CUDA device (port of
-``cad/train_net.py``).
+"""CAD detector training and evaluation CLI on every card of a host, or of
+several (port of ``cad/train_net.py``).
 
     python -m unmore_tpu_torch.cli.train_net \\
         --config-file cad/configs/cascade_mask_rcnn_R_50_FPN.yaml \\
@@ -28,8 +28,18 @@ fresh run from them; without one the detector gets random weights from
 seed 0. Images are evaluated ``--eval-bs`` at a time (4 by default), the
 last batch padded with blank images, decoded on ``--eval-workers`` threads
 while the device runs. ``--max-restarts N`` relaunches the run as a
-supervised child (with ``--resume``); a run whose loss windows look corrupt
-twice in a row exits with code 3 without saving.
+supervised child (with ``--resume``, one rank only); a run whose loss
+windows look corrupt twice in a row exits with code 3 without saving.
+
+Training and evaluation run data-parallel over every visible card, one rank
+each, spawned here unless torchrun (or the JAX package's ``JAX_*``
+variables, one process per host) started them, as the JAX CLI runs over
+every chip of every process: ``SOLVER.REFERENCE_WORLD_SIZE`` rescales the
+solver to the rank count, ``IMS_PER_BATCH`` is the global batch (divisible
+by it), each host draws the JAX process's stream (worker seeds
+``1000 + 17 * host + w``) and each of its ranks trains on its rows; the
+images to evaluate are sharded over the ranks and rank 0 evaluates the
+gathered predictions and writes every file.
 """
 
 from __future__ import annotations
@@ -52,10 +62,14 @@ IGNORED = "accepted for compatibility and ignored by this build"
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--config-file", type=str, default=None)
-    p.add_argument("--num-gpus", type=int, default=1, help=IGNORED + " (one device)")
-    p.add_argument("--num-machines", type=int, default=1, help=IGNORED)
-    p.add_argument("--machine-rank", type=int, default=0, help=IGNORED)
-    p.add_argument("--dist-url", type=str, default=None, help=IGNORED)
+    p.add_argument("--num-gpus", type=int, default=1,
+                   help=IGNORED + ", as by the JAX CLI: every visible card runs a rank")
+    p.add_argument("--num-machines", type=int, default=1,
+                   help=IGNORED + ", as by the JAX CLI: hosts join through torchrun or JAX_NUM_PROCESSES")
+    p.add_argument("--machine-rank", type=int, default=0,
+                   help=IGNORED + ", as by the JAX CLI: a host's index comes from torchrun or JAX_PROCESS_ID")
+    p.add_argument("--dist-url", type=str, default=None,
+                   help=IGNORED + ", as by the JAX CLI: the address comes from torchrun or JAX_COORDINATOR_ADDRESS")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-only", action="store_true")
     p.add_argument("--test-dataset", type=str, default="")
@@ -70,14 +84,14 @@ def parse_args(argv=None):
                    help="resolve --test-dataset names via the dataset registry")
     p.add_argument("--canvas-size", type=int, default=1024)
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"])
-    p.add_argument("--eval-bs", type=int, default=0, help="eval inference batch (0 = auto: 4 on one device)")
+    p.add_argument("--eval-bs", type=int, default=0, help="eval inference batch of a rank (0 = auto: 4)")
     p.add_argument("--eval-workers", type=int, default=2, help="image-decode threads overlapping the device")
     p.add_argument("--train-workers", type=int, default=4,
                    help="training prefetch threads (decode + copy-paste); raise on many-core hosts if data_starved "
                         "grows")
     p.add_argument("--max-restarts", type=int, default=0,
-                   help="supervise the run: relaunch it (with --resume) up to N times after a crash, a kill "
-                        "or --hang-timeout-min of output silence")
+                   help="supervise a one-rank run: relaunch it (with --resume) up to N times after a crash, a "
+                        "kill or --hang-timeout-min of output silence")
     p.add_argument("--hang-timeout-min", type=float, default=40.0,
                    help="supervised runs only: kill and restart a child that prints nothing for this many "
                         "minutes (0: never)")
@@ -85,7 +99,8 @@ def parse_args(argv=None):
                    help=IGNORED + " (the busy-wedge watchdog of the TPU build)")
     p.add_argument("--corrupt-loss-ceiling", type=float, default=1e3,
                    help="a finite loss above this (after warmup) counts as a corrupt log window")
-    p.add_argument("--device", type=str, default=None, help="torch device (default cuda); 'cpu' runs on the CPU")
+    p.add_argument("--device", type=str, default=None,
+                   help="one torch device (default: every visible card, one rank each); 'cpu' runs on the CPU")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return p.parse_args(argv)
 
@@ -245,17 +260,21 @@ def run_eval(model, det_cfg, cfg_yaml, out_dir: str, tag: str, dataset, test_jso
              eval_workers: int = 2, verify: bool = False, tasks=("bbox", "segm")) -> dict:
     """Evaluate ``model`` (eval mode, in ``det_cfg.dtype``) on ``dataset``
     (``len`` and ``get(i, dtype)`` -> (image, id), as ``COCOImages``) against
-    ``test_json`` (a path or the GT dict): writes
+    ``test_json`` (a path or the GT dict), each rank on its strided shard of
+    the images: rank 0 gathers the predictions, writes
     ``coco_instances_results.json`` and ``metrics_<tag>.json`` into
-    ``out_dir``; ``verify`` applies ``TEST.EXPECTED_RESULTS``."""
+    ``out_dir`` and returns the metrics (other ranks None); ``verify``
+    applies ``TEST.EXPECTED_RESULTS``."""
     from concurrent.futures import ThreadPoolExecutor
 
     from unmore_tpu_torch.cli.common import NpEncoder
     from unmore_tpu_torch.detector.evaluation import DetectorEvaluator
     from unmore_tpu_torch.evaluation.coco_eval import evaluate_ap
+    from unmore_tpu_torch.parallel import distributed as dist
 
     evaluator = DetectorEvaluator(model, det_cfg, device=device)
-    n = len(dataset)
+    mine = dist.host_shard_indices(len(dataset))
+    n = len(mine)
     print(f"* eval[{tag}]: {n} images on {device}", flush=True)
     # the last batch is padded with blank images under a sentinel id, whose
     # predictions are dropped: every call has the same batch shape
@@ -265,7 +284,7 @@ def run_eval(model, det_cfg, cfg_yaml, out_dir: str, tag: str, dataset, test_jso
     with ThreadPoolExecutor(max(eval_workers, 1)) as decode_pool, ThreadPoolExecutor(1) as pool:
 
         def load_chunk(c0):
-            chunk = list(decode_pool.map(lambda i: dataset.get(i, dtype=np.uint8), range(c0, min(c0 + eval_bs, n))))
+            chunk = list(decode_pool.map(lambda i: dataset.get(int(i), dtype=np.uint8), mine[c0:c0 + eval_bs]))
             return chunk + [pad] * (eval_bs - len(chunk))
 
         fut = pool.submit(load_chunk, 0) if n else None
@@ -278,6 +297,9 @@ def run_eval(model, det_cfg, cfg_yaml, out_dir: str, tag: str, dataset, test_jso
             n_done = min(c0 + eval_bs, n)
             print(f"[{n_done}/{n}] ({n_done / (time.time() - t0):.2f} img/s)", flush=True)
 
+    preds = [p for part in dist.all_gather_objects(preds) for p in part]
+    if not dist.is_main():
+        return None
     with open(os.path.join(out_dir, "coco_instances_results.json"), "w") as f:
         json.dump(preds, f, cls=NpEncoder)
     metrics = evaluate_ap(test_json, preds, iou_types=tasks)
@@ -291,20 +313,25 @@ def run_eval(model, det_cfg, cfg_yaml, out_dir: str, tag: str, dataset, test_jso
 
 def batch_workers(dataset_fn, det_cfg, solver: dict, n_workers: int) -> list:
     """``n_workers`` prefetch worker functions, worker ``w`` owning the
-    dataset ``dataset_fn(seed)`` and a numpy generator of seed ``1000 + w``
-    (the JAX CLI's seeds), each returning one wire-format batch of
-    ``ims_per_batch`` images a call."""
+    dataset ``dataset_fn(seed)`` and a numpy generator of seed
+    ``1000 + 17 * host + w`` (the JAX CLI's seeds, a host being a JAX
+    process), each drawing one wire-format batch of the host's share of
+    ``ims_per_batch`` images a call and returning this rank's rows of it."""
     from unmore_tpu_torch.data.detection import detection_batch_iterator
+    from unmore_tpu_torch.parallel import distributed as dist
+
+    host_bs = dist.local_batch_size(solver["ims_per_batch"]) * dist.local_world_size()
+    host = dist.process_index() // dist.local_world_size()
 
     def worker(seed):
         it = detection_batch_iterator(
-            dataset_fn(seed), solver["ims_per_batch"], det_cfg.max_gt, det_cfg.gt_mask_res,
+            dataset_fn(seed), host_bs, det_cfg.max_gt, det_cfg.gt_mask_res,
             np.random.default_rng(seed), copy_paste=solver["copy_paste"], rate=solver["copy_paste_rate"],
             min_ratio=solver["copy_paste_min_ratio"], max_ratio=solver["copy_paste_max_ratio"],
             random_num=solver["copy_paste_random_num"])
-        return lambda: next(it)
+        return lambda: dist.local_rows(next(it))
 
-    return [worker(1000 + w) for w in range(max(n_workers, 1))]
+    return [worker(1000 + 17 * host + w) for w in range(max(n_workers, 1))]
 
 
 def make_trainer(det_cfg, solver: dict, device, dtype: str = "bfloat16", seed: int = 0):
@@ -368,11 +395,13 @@ def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=N
     ``on_step(step_no, losses)`` runs after each step's launch (no sync
     here). Returns the logged lines, the checkpoints written (path, bytes,
     seconds), the PreciseBN seconds, the evaluations' metrics and
-    ``data_starved``."""
+    ``data_starved``. Over several ranks rank 0 writes the logs, metrics and
+    checkpoints, and the statistics of PreciseBN are the global batch's."""
     import torch
 
     from unmore_tpu_torch.data.prefetch import PrefetchIterator
     from unmore_tpu_torch.detector.cascade_rcnn import normalize
+    from unmore_tpu_torch.parallel import distributed as dist
     from unmore_tpu_torch.train.checkpoints import AsyncCheckpointer
     from unmore_tpu_torch.train.objectness import to_device
     from unmore_tpu_torch.train.precise_bn import precise_bn_stats
@@ -390,7 +419,9 @@ def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=N
         return to_device(host, trainer.device)
 
     def precise_bn():
-        n_bn = max(1, solver["precise_bn_iters"] // max(solver["ims_per_batch"], 1))
+        # batches of a host, as the JAX CLI counts the batches of a process
+        host_bs = dist.local_batch_size(solver["ims_per_batch"]) * dist.local_world_size()
+        n_bn = max(1, solver["precise_bn_iters"] // host_bs)
         print(f"* precise_bn: {n_bn} stat batches", flush=True)
         t0 = time.perf_counter()
 
@@ -411,7 +442,8 @@ def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=N
             summary["checkpoints"].append(dict(done))
 
     writer = AsyncCheckpointer()
-    tb = EventWriter(os.path.join(out_dir, "tb"))
+    main_rank = dist.is_main()
+    tb = EventWriter(os.path.join(out_dir, "tb")) if main_rank else None
     metrics_path = os.path.join(out_dir, "metrics.json")
     detector = CorruptionDetector()
     summary = {"logs": [], "checkpoints": [], "precise_bn_s": [], "evals": {}}
@@ -438,22 +470,25 @@ def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=N
                 line["ips"] = round(20 * solver["ims_per_batch"] / (time.time() - t0), 2)
                 line["data_starved"] = round(it.starved_fraction, 3)
                 t0 = time.time()
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(line) + "\n")
-                for k, v in line.items():
-                    if k != "iteration":
-                        tb.add_scalar(k, v, step_no)
-                tb.flush()
+                if main_rank:
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(line) + "\n")
+                    for k, v in line.items():
+                        if k != "iteration":
+                            tb.add_scalar(k, v, step_no)
+                    tb.flush()
+                    print(line, flush=True)
                 summary["logs"].append(line)
-                print(line, flush=True)
             if step_no % solver["checkpoint_period"] == 0 or step_no == max_iter:
                 if detector.last_window_corrupt:
                     print(f"* skipping checkpoint at iter {step_no} (last loss window corrupt)")
                 else:
-                    drain()
-                    writer.save(os.path.join(out_dir, f"model_{step_no:07d}.ckpt"), trainer.checkpoint_tensors(),
-                                trainer.checkpoint_tree)
-                    print(f"* checkpoint scheduled at iter {step_no} (async; durable after drain)")
+                    if main_rank:
+                        drain()
+                        writer.save(os.path.join(out_dir, f"model_{step_no:07d}.ckpt"),
+                                    trainer.checkpoint_tensors(), trainer.checkpoint_tree)
+                        print(f"* checkpoint scheduled at iter {step_no} (async; durable after drain)")
+                    dist.barrier("ckpt")
             if eval_fn is not None and solver["eval_period"] and (
                     step_no % solver["eval_period"] == 0 or step_no == max_iter):
                 stats = precise_bn() if solver["precise_bn"] else None
@@ -463,35 +498,53 @@ def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=N
         drain()
     finally:
         it.close()
-        tb.close()
+        if tb is not None:
+            tb.close()
     summary["data_starved"] = it.starved_fraction
     return summary
 
 
 def main(argv=None):
     args = parse_args(argv)
+    raw = list(argv) if argv is not None else sys.argv[1:]
+
+    from unmore_tpu_torch.cli.common import launch_local_ranks
+    from unmore_tpu_torch.parallel import mesh
+
+    n_local = 1 if mesh.launched() else mesh.local_ranks(-1, args.device)
     if args.max_restarts > 0:
+        if n_local > 1 or mesh.launched():
+            # a rank that restarts alone cannot rejoin peers blocked in a collective
+            raise SystemExit("--max-restarts supervises a one-rank run only; pass --device (one card) or relaunch "
+                             "a run of several ranks with --resume")
         sys.exit(_supervised(args, argv))
     if not args.eval_only:
         assert args.train_json, "--train-json required for training"
+    launch_local_ranks(main, raw, n_local)
 
     import torch
 
     from unmore_tpu_torch import resolve_device
     from unmore_tpu_torch.data.coco import COCOImages
     from unmore_tpu_torch.detector.config_yaml import dump_yaml
+    from unmore_tpu_torch.parallel import distributed as dist
 
-    device = resolve_device(args.device)
+    dist.initialize()
+    device = resolve_device(args.device or (str(dist.local_device()) if dist.process_count() > 1 else None))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
     # f32 means f32: no TF32 in cuDNN convolutions or cuBLAS matmuls
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
     det_cfg, solver, cfg_yaml = build_from_config(args)
-    solver = auto_scale_workers(solver, 1)
+    solver = auto_scale_workers(solver, dist.process_count())
     out_dir = solver["output_dir"]
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.yaml"), "w") as f:
-        f.write(dump_yaml(cfg_yaml) + "\n")
+    if dist.is_main():
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.yaml"), "w") as f:
+            f.write(dump_yaml(cfg_yaml) + "\n")
+    dist.barrier("setup")
 
     trainer = make_trainer(det_cfg, solver, device, args.dtype)
     weights = find_last_checkpoint(out_dir) if args.resume else None

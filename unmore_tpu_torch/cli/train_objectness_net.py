@@ -1,4 +1,4 @@
-"""Stage-1 training CLI on one CUDA device.
+"""Stage-1 training CLI on every card of a host.
 
     python -m unmore_tpu_torch.cli.train_objectness_net --train_center_and_boundary \\
         --imagenet_dir IMAGES --votecut_mask_dir MASKS --sdf_activation tanh --use_bg_sdf \\
@@ -14,12 +14,17 @@ JAX trainers' ``TrainState`` in flax msgpack, so either package resumes the
 other's run and both packages' stage-2 CLIs load it. Without ``--resume``
 the weights start from ``--seed`` with flax's initializers.
 
-``--device`` picks the torch device (default: CUDA card ``--gpu_index``);
-``--dtype bfloat16`` runs the forward under ``torch.autocast`` over f32
-parameters; TF32 stays off. One host pull of the loss per log window. The
+Both trainers run data-parallel over every visible card, one rank each
+(spawned here unless torchrun started them), as the JAX CLI's mesh takes
+every local chip: the ranks run the host's one seeded data stream and each
+trains on its rows of every batch, ``--batch_size`` being the global batch
+(divisible by the rank count); rank 0 writes the logs, visualisations,
+evaluations and checkpoints. ``--device`` picks one torch device (default:
+CUDA card ``--gpu_index`` on one card); ``--dtype bfloat16`` runs the
+forward under ``torch.autocast`` over f32 parameters; TF32 stays off. One host pull of the loss per log window. The
 spike guard skips bad batches on the card; two consecutive corrupt log
 windows exit with code 3 without saving, and ``--max_restarts N`` relaunches
-the run from its newest checkpoint. ``--vit_pack > 1`` is not ported.
+a one-rank run from its newest checkpoint. ``--vit_pack > 1`` is not ported.
 """
 
 from __future__ import annotations
@@ -41,9 +46,11 @@ IGNORED = "accepted for the JAX CLI's recipes and ignored"
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--gpu_index", type=int, default=0, help="CUDA card to train on (with the default --device)")
+    p.add_argument("--gpu_index", type=int, default=0,
+                   help="CUDA card of a one-card run (with the default --device; several visible cards train "
+                        "on all of them)")
     p.add_argument("--device", type=str, default=None,
-                   help="torch device; default cuda:<gpu_index>; 'cpu' trains on the CPU")
+                   help="one torch device; default: every visible card, one rank each; 'cpu' trains on the CPU")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--run_name", type=str, default=None)
     p.add_argument("--save_ckpt_every", type=int, default=5000)
@@ -82,8 +89,8 @@ def parse_args(argv=None):
     p.add_argument("--votecut_full_mask_dir", type=str, default=None, help="full votecut masks (existence bg crops)")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"])
     p.add_argument("--max_restarts", type=int, default=0,
-                   help="supervise the run: relaunch it with --resume at the newest checkpoint up to N times "
-                        "after the fail-fast exit (code 3), a crash or --hang_timeout_min of silence")
+                   help="supervise a one-rank run: relaunch it with --resume at the newest checkpoint up to N "
+                        "times after the fail-fast exit (code 3), a crash or --hang_timeout_min of silence")
     p.add_argument("--hang_timeout_min", type=float, default=40.0,
                    help="supervised runs only: kill and restart a child that prints nothing for this many "
                         "minutes (0: never)")
@@ -130,13 +137,16 @@ def default_run_name(args) -> str:
 
 
 def make_run_dir(args, mode: str) -> str:
+    from unmore_tpu_torch.parallel import distributed as dist
+
     if args.run_name is None:
         args.run_name = default_run_name(args)
     result_folder = os.path.join("results_objectness", mode, args.run_name)
     os.makedirs(os.path.join(result_folder, "ckpt"), exist_ok=True)
     os.makedirs(os.path.join(result_folder, "imgs"), exist_ok=True)
-    with open(os.path.join(result_folder, "configs.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if dist.is_main():
+        with open(os.path.join(result_folder, "configs.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
     return result_folder
 
 
@@ -164,15 +174,23 @@ def build_classifier_model(args):
 
 
 def _setup(args):
-    """The training device; TF32 off, so that f32 means f32."""
-    import torch
+    """Join the host's ranks; the rank's training device, TF32 off. The
+    global batch must split evenly over the ranks."""
+    from unmore_tpu_torch.cli.common import setup_device
+    from unmore_tpu_torch.parallel import distributed as dist
 
-    from unmore_tpu_torch import resolve_device
+    dist.initialize()
+    if dist.process_count() != dist.local_world_size():
+        raise SystemExit("stage 1 trains on the cards of one host, as the JAX package's mesh of local chips")
+    dist.local_batch_size(args.batch_size)
+    return setup_device(args)
 
-    device = resolve_device(args.device or f"cuda:{args.gpu_index}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return device
+
+def _rows(make_batch):
+    """A prefetch worker that keeps this rank's rows of each host batch."""
+    from unmore_tpu_torch.parallel import distributed as dist
+
+    return lambda: dist.local_rows(make_batch())
 
 
 def _model(build, args, device):
@@ -209,6 +227,7 @@ def train_center_and_boundary(args):
     from unmore_tpu_torch.config import ModelConfig, OptimConfig, TrainObjectnessConfig
     from unmore_tpu_torch.data.prefetch import PrefetchIterator
     from unmore_tpu_torch.data.votecut import VoteCutObjectnessDataset, batch_iterator
+    from unmore_tpu_torch.parallel import distributed as dist
     from unmore_tpu_torch.train.checkpoints import AsyncCheckpointer
     from unmore_tpu_torch.train.objectness import ObjectnessTrainer, decode_wire_batch, to_device
     from unmore_tpu_torch.train.resilience import CorruptionDetector, fault_injection_active
@@ -270,11 +289,12 @@ def train_center_and_boundary(args):
         ds = VoteCutObjectnessDataset(args.imagenet_dir, args.votecut_mask_dir, args.image_size, args.use_bg_sdf,
                                       crop_scale=crop_scale, seed=worker_seed)
         it = batch_iterator(lambda i: ds.get(i), len(ds), args.batch_size, np.random.default_rng(worker_seed))
-        return lambda: next(it)
+        return _rows(lambda: next(it))
 
     prefetch = PrefetchIterator(worker_fns=[worker(args.seed + 1000 * w) for w in range(max(args.num_workers, 1))])
     ckpt_writer = AsyncCheckpointer()
-    tb = EventWriter(os.path.join(result_folder, "tb"))
+    main_rank = dist.is_main()  # writes the logs, diagnostics and checkpoints
+    tb = EventWriter(os.path.join(result_folder, "tb")) if main_rank else None
     loss_acc = skip_acc = None  # device scalars, pulled once per log window
     detector = CorruptionDetector()  # consecutive fully-skipped windows -> fatal
     t0 = time.time()
@@ -291,10 +311,12 @@ def train_center_and_boundary(args):
                 # land on a checkpoint written inside the incident
                 print(f"* skipping checkpoint at iter {step_no} (last window corrupt)")
             else:
-                path = os.path.join(result_folder, "ckpt", f"iter_{step_no}_model.ckpt")
-                ckpt_writer.save(path, trainer.checkpoint_tensors(), trainer.checkpoint_tree)
-                print(f"* checkpoint scheduled {path} (async; durable after drain)")
-        if step_no % args.visualize_every == 0:
+                if main_rank:
+                    path = os.path.join(result_folder, "ckpt", f"iter_{step_no}_model.ckpt")
+                    ckpt_writer.save(path, trainer.checkpoint_tensors(), trainer.checkpoint_tree)
+                    print(f"* checkpoint scheduled {path} (async; durable after drain)")
+                dist.barrier("ckpt")
+        if step_no % args.visualize_every == 0 and main_rank:
             vis_dir = os.path.join(result_folder, "imgs", f"iter_{step_no}")
             n = min(args.N_vis, len(host_batch["image"]))
             out = predict(host_batch["image"][:n])
@@ -313,13 +335,14 @@ def train_center_and_boundary(args):
             loss_acc = skip_acc = None
             rate = args.log_every / (time.time() - t0)
             t0 = time.time()
-            append_log(train_log_path, step_no, avg)
-            tb.add_scalar("total_loss", avg, step_no)
-            tb.add_scalar("imgs_per_sec", rate * args.batch_size, step_no)
-            tb.flush()
-            skip_note = f", {n_skipped} spike-skipped" if n_skipped else ""
-            print(f"iter {step_no} loss {avg:.4f} ({rate:.2f} it/s, {rate * args.batch_size:.1f} imgs/s, "
-                  f"data-starved {prefetch.starved_fraction:.1%}{skip_note})", flush=True)
+            if main_rank:
+                append_log(train_log_path, step_no, avg)
+                tb.add_scalar("total_loss", avg, step_no)
+                tb.add_scalar("imgs_per_sec", rate * args.batch_size, step_no)
+                tb.flush()
+                skip_note = f", {n_skipped} spike-skipped" if n_skipped else ""
+                print(f"iter {step_no} loss {avg:.4f} ({rate:.2f} it/s, {rate * args.batch_size:.1f} imgs/s, "
+                      f"data-starved {prefetch.starved_fraction:.1%}{skip_note})", flush=True)
             # every batch of consecutive windows skipped: the state is not to
             # be trusted; exit without saving, a restart resumes from the last
             # periodic checkpoint (train/resilience.py)
@@ -328,7 +351,8 @@ def train_center_and_boundary(args):
                                  f"{step_no}. NOT saving; restart with --resume from the last periodic checkpoint.")
     ckpt_writer.wait()
     prefetch.close()
-    tb.close()
+    if main_rank:
+        tb.close()
 
 
 def existence_batch_worker(args, worker_seed):
@@ -367,6 +391,7 @@ def existence_batch_worker(args, worker_seed):
 def train_existence(args):
     from unmore_tpu_torch.config import OptimConfig
     from unmore_tpu_torch.data.prefetch import PrefetchIterator
+    from unmore_tpu_torch.parallel import distributed as dist
     from unmore_tpu_torch.train.checkpoints import AsyncCheckpointer
     from unmore_tpu_torch.train.classifier import ClassifierTrainer
     from unmore_tpu_torch.train.objectness import to_device
@@ -416,9 +441,10 @@ def train_existence(args):
 
     result_folder = make_run_dir(args, "existence")
     train_log_path = os.path.join(result_folder, "train_log.json")
-    prefetch = PrefetchIterator(worker_fns=[existence_batch_worker(args, args.seed + 1000 * w)
+    prefetch = PrefetchIterator(worker_fns=[_rows(existence_batch_worker(args, args.seed + 1000 * w))
                                             for w in range(max(args.num_workers, 1))])
     ckpt_writer = AsyncCheckpointer()
+    main_rank = dist.is_main()  # writes the logs, evaluations and checkpoints
     detector = CorruptionDetector()
     loss_acc = None
     t0 = time.time()
@@ -430,10 +456,12 @@ def train_existence(args):
             if detector.last_window_corrupt:
                 print(f"* skipping checkpoint at iter {step_no} (last window corrupt)")
             else:
-                path = os.path.join(result_folder, "ckpt", f"iter_{step_no}_model.ckpt")
-                ckpt_writer.save(path, trainer.checkpoint_tensors(), trainer.checkpoint_tree)
-                print(f"* checkpoint scheduled {path} (async; durable after drain)")
-        if step_no % args.evaluate_every == 0:
+                if main_rank:
+                    path = os.path.join(result_folder, "ckpt", f"iter_{step_no}_model.ckpt")
+                    ckpt_writer.save(path, trainer.checkpoint_tensors(), trainer.checkpoint_tree)
+                    print(f"* checkpoint scheduled {path} (async; durable after drain)")
+                dist.barrier("ckpt")
+        if step_no % args.evaluate_every == 0 and main_rank:
             evaluate_classification(step_no, result_folder)
         if step_no % args.log_every == 0:
             n = min(step_no - start_iter, args.log_every)
@@ -441,9 +469,10 @@ def train_existence(args):
             loss_acc = None
             rate = args.log_every / (time.time() - t0)
             t0 = time.time()
-            append_log(train_log_path, step_no, avg)
-            print(f"iter {step_no} loss {avg:.4f} ({rate:.2f} it/s, {rate * args.batch_size:.1f} imgs/s, "
-                  f"data-starved {prefetch.starved_fraction:.1%})", flush=True)
+            if main_rank:
+                append_log(train_log_path, step_no, avg)
+                print(f"iter {step_no} loss {avg:.4f} ({rate:.2f} it/s, {rate * args.batch_size:.1f} imgs/s, "
+                      f"data-starved {prefetch.starved_fraction:.1%})", flush=True)
             # a BCE window loss non-finite (or absurd) for consecutive windows
             if detector.update(detector.loss_window_corrupt(avg) or fault_injection_active(step_no)):
                 _fatal(prefetch, f"FATAL: {detector.consecutive} consecutive corrupt loss windows at iter "
@@ -458,15 +487,26 @@ def main(argv=None):
     if args.vit_pack > 1:
         raise SystemExit("--vit_pack > 1 (ViT sequence packing) is not ported; it is queued in ROADMAP.md "
                          "(section A, left out of A1-A5)")
+    raw = list(argv) if argv is not None else sys.argv[1:]
+
+    from unmore_tpu_torch.cli.common import launch_local_ranks, pin_run_name
+    from unmore_tpu_torch.parallel import mesh
+
+    n_local = 1 if mesh.launched() or args.eval_mode else mesh.local_ranks(-1, args.device)
+    several = n_local > 1 or mesh.launched()
+    if several and args.max_restarts > 0 and not args.eval_mode:
+        # a rank that restarts alone cannot rejoin peers blocked in a collective
+        raise SystemExit("--max_restarts supervises a one-rank run only; pass --device (one card) or relaunch "
+                         "a run of several ranks with --resume")
+    if (several or args.max_restarts > 0) and not args.eval_mode:
+        # pin the run name, so that every rank and every child writes to one
+        # run directory and a restart finds its checkpoints
+        raw = pin_run_name(args, raw, default_run_name(args))
+    launch_local_ranks(main, raw, n_local)
     if args.max_restarts > 0 and not args.eval_mode:
-        # pin the run name, so that every child writes to one run directory
-        # and a restart finds its checkpoints; then run single-shot children
-        if args.run_name is None:
-            args.run_name = default_run_name(args)
+        # run single-shot children
         mode = "center_and_boundary" if args.train_center_and_boundary else "existence"
         run_dir = os.path.join("results_objectness", mode, args.run_name)
-        raw = list(argv) if argv is not None else sys.argv[1:]
-        raw = supervisor.strip_flag(raw, "--run_name", True) + ["--run_name", args.run_name]
         base = supervisor.child_argv(__spec__.name, raw, "--max_restarts")
         sys.exit(supervisor.run_resuming(base, lambda: find_last_stage1_checkpoint(run_dir), args.max_restarts,
                                          args.hang_timeout_min))

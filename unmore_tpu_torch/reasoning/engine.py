@@ -20,8 +20,11 @@ The same program as the JAX engine, run eagerly on one device:
 * a per-image NMS by coordinate offset picks the final boxes.
 
 Results follow the JAX engine's compaction order, because the final NMS
-(all scores equal) breaks ties in that order. Not ported yet: multi-device
-sharding and the segmented boundary evolution.
+(all scores equal) breaks ties in that order. Over several cards the
+discovery CLI runs one engine a rank, each on its strided shard of the
+images (:mod:`unmore_tpu_torch.parallel`), where the JAX engine shards
+image groups over the chips of one process with ``shard_map``. Not ported:
+the segmented boundary evolution (a TPU-watchdog workaround).
 """
 
 from __future__ import annotations

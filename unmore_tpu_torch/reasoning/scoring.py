@@ -19,7 +19,9 @@ Per proposal:
   area score      = (area / max kept area of the image) ** 0.25
   final score     = existence * center * boundary * area score
 
-Not ported yet: sharding image groups over several devices.
+Over several cards the scoring CLI runs one engine a rank, each on its
+strided shard of the images (:mod:`unmore_tpu_torch.parallel`), where the
+JAX package shards image groups over the chips of one process.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ The reference ``BinaryClassifierTrainer`` (``train_objectness_net.py:540-743``):
 BCE on the sigmoid output with clipping, Adam with the multi-step schedule,
 BatchNorm in train mode (batch statistics; running statistics updated as
 flax does, see :mod:`unmore_tpu_torch.models.resnet`), evaluation of the
-accuracy at 0.5 with the running statistics.
+accuracy at 0.5 with the running statistics. Over several ranks the flat
+gradient is averaged and the BatchNorms take the global batch's statistics,
+as one step of the JAX package over its mesh.
 """
 
 from __future__ import annotations
@@ -14,7 +16,8 @@ import torch
 
 from unmore_tpu_torch.config import OptimConfig
 from unmore_tpu_torch.models.convert import flax_layout, flax_tree, tensors_from_flax
-from unmore_tpu_torch.train.objectness import Trainer, decode_wire_batch
+from unmore_tpu_torch.parallel import distributed
+from unmore_tpu_torch.train.objectness import Trainer, decode_wire_batch, mean_over_ranks
 
 
 def bce_loss(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -44,14 +47,15 @@ class ClassifierTrainer(Trainer):
         return {"loss": bce_loss(pred[:, 0], batch["label"].float())}
 
     def train_step(self, batch: dict) -> dict:
-        """One update from a batch of tensors on the card; ``{"loss"}`` as a
-        device scalar."""
+        """One update from a batch of tensors on the card (this rank's
+        rows); the global batch's ``{"loss"}`` as a device scalar."""
         self.flat.grad.zero_()
-        loss = self.loss(batch)["loss"]
-        loss.backward()
+        losses = self.loss(batch)
+        losses["loss"].backward()
+        distributed.all_reduce_mean_(self.flat.grad)
         self.opt.step()
         self.step += 1
-        return {"loss": loss.detach()}
+        return mean_over_ranks(losses)
 
     @torch.no_grad()
     def eval_step(self, batch: dict):

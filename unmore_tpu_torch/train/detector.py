@@ -26,6 +26,13 @@ and ``rng`` a uint32[2] key. The samplers' uniform draws come from a
 splitmix64 on the host), so a resumed run draws what an uninterrupted one
 would; the JAX package draws with ``jax.random``, so the two packages'
 samples differ from the first step.
+
+Over several ranks each rank takes its rows of the global batch. The flat
+gradient is averaged by one all-reduce, the BatchNorms take the global
+batch's statistics, the non-finite decision reads the global batch's loss,
+and every rank draws the global batch's draws from the same generator state
+and keeps its rows: a step of N ranks samples what a step of one rank on the
+whole batch samples.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ import torch
 
 from unmore_tpu_torch.detector.cascade_rcnn import DetectorConfig, detector_forward_train, uniform_draws
 from unmore_tpu_torch.detector.convert import flax_from_state_dict, state_dict_from_flax
+from unmore_tpu_torch.parallel import distributed
+from unmore_tpu_torch.train.objectness import mean_over_ranks
 from unmore_tpu_torch.train.optim import FlatParams
 
 _MASK64 = (1 << 64) - 1
@@ -142,10 +151,14 @@ class DetectorTrainer:
         return torch.autocast(device_type=self.device.type, dtype=torch.bfloat16, enabled=self.bf16)
 
     def next_draws(self, batch_size: int) -> dict:
-        """The samplers' draws of the next step, from a key split off ``rng``."""
+        """The samplers' draws of the next step for this rank's
+        ``batch_size`` images: the global batch's draws, from a key split
+        off ``rng`` (the same on every rank), cut to this rank's rows."""
         self.rng, seed = split_key(self.rng)
         self.generator.manual_seed(seed)
-        return uniform_draws(self.cfg, batch_size, self.generator, self.device)
+        n, r = distributed.process_count(), distributed.process_index()
+        draws = uniform_draws(self.cfg, batch_size * n, self.generator, self.device)
+        return {k: v[r * batch_size:(r + 1) * batch_size] for k, v in draws.items()}
 
     def loss(self, batch: dict, uniform: dict | None = None) -> dict:
         """The losses of a batch of tensors on the card, with the graph, and
@@ -159,17 +172,20 @@ class DetectorTrainer:
         return losses
 
     def train_step(self, batch: dict, uniform: dict | None = None) -> dict:
-        """One guarded update; returns the losses as device scalars."""
+        """One guarded update from this rank's rows of the global batch;
+        returns the global batch's losses as device scalars."""
         self.flat.grad.zero_()
         stats = self.stats.clone()
         losses = self.loss(batch, uniform)
         losses["total"].backward()
-        ok = torch.isfinite(losses["total"].detach())
+        distributed.all_reduce_mean_(self.flat.grad)
+        losses = mean_over_ranks(losses)
+        ok = torch.isfinite(losses["total"])
         self.opt.step(ok)
         torch.where(ok, self.stats, stats, out=self.stats)
         self.step += 1
         self.skipped += (~ok).int()
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
 
     # -------------------------------------------------------- checkpoints
     def checkpoint_tensors(self) -> dict[str, torch.Tensor]:

@@ -26,6 +26,7 @@ import torch
 from unmore_tpu_torch.config import TrainObjectnessConfig
 from unmore_tpu_torch.models.convert import flax_layout, flax_tree, tensors_from_flax
 from unmore_tpu_torch.ops.image import image_gradients
+from unmore_tpu_torch.parallel import distributed
 from unmore_tpu_torch.train.optim import FlatParams, Optimizer
 
 _255 = 255.0  # wire-format scale; divided by as a 0-d tensor (see decode_wire_batch)
@@ -63,6 +64,16 @@ def objectness_losses(out: dict, batch: dict, cfg: TrainObjectnessConfig) -> dic
 
     losses["total"] = sum(losses.values())
     return losses
+
+
+def mean_over_ranks(losses: dict) -> dict:
+    """The losses, detached, each the mean over the ranks (one all-reduce):
+    the global batch's losses, on which every rank decides alike."""
+    out = {k: v.detach() for k, v in losses.items()}
+    if distributed.world() is not None:
+        flat = distributed.all_reduce_mean_(torch.stack(list(out.values())))
+        out = dict(zip(out, flat.unbind()))
+    return out
 
 
 def to_device(batch: dict, device) -> dict:
@@ -164,18 +175,20 @@ class ObjectnessTrainer(Trainer):
 
     def train_step(self, batch: dict) -> dict:
         """One guarded update from a batch of tensors on the card (wire
-        format or f32). Returns the losses (and ``skipped`` when the guard
-        is on) as device scalars."""
+        format or f32; this rank's rows). Returns the global batch's losses
+        (and ``skipped`` when the guard is on) as device scalars."""
         cfg = self.cfg
         self.flat.grad.zero_()
         losses = self.loss(batch)
         losses["total"].backward()
+        distributed.all_reduce_mean_(self.flat.grad)
+        losses = mean_over_ranks(losses)
         ok = None
         if cfg.skip_loss_above > 0:
-            total = losses["total"].detach()
+            total = losses["total"]
             armed = self.step >= cfg.spike_guard_warmup
             ok = torch.isfinite(total) & (~armed | (total < cfg.skip_loss_above))
             losses["skipped"] = (~ok).float()
         self.opt.step(ok)
         self.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return losses

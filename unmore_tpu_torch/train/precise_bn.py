@@ -4,17 +4,17 @@ package's ``train/precise_bn.py``).
 detectron2's PreciseBN hook (enabled in the CAD YAML with NUM_ITER 200)
 runs train-mode forwards over fresh batches and replaces the running
 statistics with the plain average of the per-batch statistics (batch mean
-and biased batch variance), every batch counting equally. The JAX package
-recovers each batch's statistics by inverting flax's momentum update; here a
-hook on each BatchNorm reads them off its input directly, while the
-running statistics stay as they are.
+and biased batch variance; of the global batch over several ranks), every
+batch counting equally. The JAX package recovers each batch's statistics by
+inverting flax's momentum update; here a hook on each BatchNorm reads them
+off its input directly, while the running statistics stay as they are.
 """
 
 from __future__ import annotations
 
 import torch
 
-from unmore_tpu_torch.models.resnet import BatchNorm2d, frozen_running_stats
+from unmore_tpu_torch.models.resnet import BatchNorm2d, batch_moments, frozen_running_stats
 
 
 @torch.no_grad()
@@ -29,7 +29,7 @@ def precise_bn_stats(model: torch.nn.Module, forward, batches) -> dict[str, torc
 
     def record(name):
         def hook(module, args):
-            var, mean = torch.var_mean(args[0].float(), dim=(0, 2, 3), correction=0)
+            mean, var = batch_moments(args[0])
             if name in sums:
                 sums[name][0] += mean
                 sums[name][1] += var
