@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in eleven
+Runs only ``unmore_tpu_torch`` (no JAX) on CUDA device 0, in twelve
 phases, each printing one JSON line:
 
 1. build: the card's name and power limit (nvidia-smi) and the seconds that
@@ -139,19 +139,38 @@ phases, each printing one JSON line:
    checkpoint each; discovery in two segments of 4 scenes at phase 3's
    canvas, image batch and lattices and every other default; scoring,
    ``post_process.py``, the port's evaluator, the merge; the CAD's YAML at
-   batch 8 for 30 steps, one checkpoint, evaluated at the end. Checks: the
-   chain exits 0 with no failed step, within 900 s (its process group is
-   killed then); the files ``tests/test_scale_chain.py`` checks exist;
-   discovery finds boxes on at least half of the scenes; the first
-   segment's discovery run again in this process through the CLI's entry
-   on the chain's checkpoints launches the decode kernel, every launch
-   equal to the plain version (max abs error 0.0), and gives the boxes of
-   the chain's ``discovery_results.json``; DPT-Large's f32 forward on 8
-   crops with two crops a packed ViT sequence (``--vit_pack 2``) within 1e-4
-   of the unpacked one, and both bf16 forwards timed on a 256-crop chunk.
-   Printed: each stage's wall (``scale_timings.txt``), discovery img/s,
-   scoring's device / host split, bbox and segm AP and AP50 of the
-   pseudo-labels, the CAD's img/s and its evaluation.
+   batch 8 for 30 steps, one checkpoint, evaluated at the end; then the two
+   dense-tail A/Bs on the 2 dense scenes (one image group; r5 ran 40):
+   ``max_active_ab`` with the truncated lattice at 256, half the chain's
+   512 (r5: 1024 against 1536), and ``sticky_ab``, both legs in bf16.
+   Checks: the chain exits 0 with no failed step, within 900 s (its process
+   group is killed then); the files ``tests/test_scale_chain.py`` checks
+   exist; discovery finds boxes on at least half of the scenes; the report
+   holds both legs of ``max_active_ab`` and a fresh ``sticky_ab_dense``
+   whose boundary-crop ratio is at least 1; the first segment's discovery
+   run again in this process through the CLI's entry on the chain's
+   checkpoints launches the decode kernel, every launch equal to the plain
+   version (max abs error 0.0), and gives the boxes of the chain's
+   ``discovery_results.json``; the sticky A/B's ``reference_rounds`` leg run
+   again in this process through the script's entry the same way, every
+   decode launch exact, with the chain's boundary crops, annotations and
+   AP figures; DPT-Large's f32 forward on 8 crops with two crops a packed
+   ViT sequence (``--vit_pack 2``) within 1e-4 of the unpacked one, and both
+   bf16 forwards timed on a 256-crop chunk. Printed: each stage's wall
+   (``scale_timings.txt``), discovery img/s, scoring's device / host split,
+   bbox and segm AP and AP50 of the pseudo-labels, the CAD's img/s and its
+   evaluation, and of the A/Bs each leg's AP and AP50, the boundary crops,
+   discovery walls, the truncated leg's ``active_overflow`` and both deltas;
+12. parity: the real-weights parity harness, ``python -m
+   unmore_tpu_torch.scripts.check_parity``, as a child on the card at tol
+   1e-3 on a fixture in the reference's formats: DPT-Large (tanh, bg-sdf)
+   and the ResNet-50 classifier with seeded random weights saved as
+   ``{'model_state_dict': ...}`` ``.ckpt`` files, and an npz in the dump's
+   NCHW layout of two 128^2 crops through an f32 forward on the CPU with
+   hooks at the reference's taps (``scratch.layer{1..4}_rn``,
+   ``scratch.refinenet{1..4}``). It must print ``PARITY OK`` and exit 0, and
+   exit 1 with one ``scratch`` weight moved by 0.05. Printed: each tap's
+   max abs difference, card against CPU.
 
 Then the kernels' JSON line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that
@@ -2595,14 +2614,15 @@ CHAIN_FOLDER = Path("build") / "smoke_chain"
 # images; both trainers at the recipe's batch 20 for 200 steps with one
 # checkpoint, supervised; discovery in two segments of 4 scenes at phase 3's
 # canvas, image batch and lattices, every other stage-2 knob the CLI's default;
-# the CAD's YAML at batch 8 for 30 steps, one checkpoint, evaluated at the end
+# the CAD's YAML at batch 8 for 30 steps, one checkpoint, evaluated at the end;
+# the A/Bs on the 2 dense scenes, one image group, the truncated lattice half of 512
 CHAIN_ARGS = ("--scenes", "8", "--size", "320", "--dense_frac", "0.25", "--dense_objects", "16", "--stage1_n", "60",
               "--s1_iters", "200", "--save_every", "200", "--exist_iters", "200", "--exist_save", "200",
               "--train_restarts", "1", "--seg", "4", "--image_batch", "2",
               "--canvas", str(MAIN_PATH_CUTS["canvas_size"]), "--max_proposals", str(MAIN_PATH_CUTS["max_proposals"]),
               "--max_splits", str(MAIN_PATH_CUTS["max_splits"]), "--max_active", str(MAIN_PATH_CUTS["max_active"]),
               "--cad_batch", "8", "--cad_iters", "30", "--cad_step", "20", "--cad_ckpt_period", "30",
-              "--cad_eval_period", "30")
+              "--cad_eval_period", "30", "--ab_end", "2", "--ab_max_active", "256")
 CHAIN_TIMEOUT_S = 900  # the chain's processes are killed, and the smoke fails, after this
 PACK_CROPS, PACK_TIMED_CROPS = 8, 256
 
@@ -2669,46 +2689,123 @@ def chain_rerun(work, kernel_counters):
     CLI's entry on the chain's two checkpoints: decode launches counted and
     each held against the plain version afterwards; the boxes against the
     chain's for those scenes."""
-    import torch
-
     from unmore_tpu_torch.cli import object_reasoning
-    from unmore_tpu_torch.ops.fields import center_singularity_scores
-    from unmore_tpu_torch.reasoning import engine
 
     chain = chain_knobs(work)
     end = min(chain.a.seg, chain.a.disc_scenes)
-    calls, real = [], engine.fused_center_decode
-
-    def record(sdf, center, *args, **kwargs):  # the engine takes its decode when the CLI builds it
-        out = real(sdf, center, *args, **kwargs)
-        calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
-        return out
-
-    engine.fused_center_decode = record
-    for counted in kernel_counters.values():
-        counted.launches = 0
     t0 = time.perf_counter()
-    try:
-        with contextlib.chdir(work):
-            object_reasoning.main(chain.discovery_argv(0, end) + ["--run_name", "rerun"])
-    finally:
-        engine.fused_center_decode = real
+    with record_decode(kernel_counters) as calls, contextlib.chdir(work):
+        object_reasoning.main(chain.discovery_argv(0, end) + ["--run_name", "rerun"])
     seconds = time.perf_counter() - t0
     launches = {name: counted.launches for name, counted in kernel_counters.items()}
-    errors = []
-    for sdf, center, got in calls:  # outside the counted run
-        want = center_singularity_scores(sdf, center)
-        pos = want[0] > 1e-4
-        if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
-            fail("the decode kernel's union or argmax differs from the plain version on the chain's discovery")
-        errors.append(float((got[0] - want[0]).abs().max()))
+    errors = decode_errors(calls)  # outside the counted run
     n_calls = len(calls)
-    del calls
+    del calls[:]
     ours = json.loads((work / "results_reasoning" / f"rerun_0_{end}" / "discovery_results.json").read_text())
     theirs = json.loads((work / "results_reasoning" / f"{chain.a.run}_0_{end}" / "discovery_results.json").read_text())
     return {"launches": launches, "recorded_calls": n_calls, "decode_max_abs_err": max(errors, default=None),
             "all_exact": bool(errors) and all(e == 0.0 for e in errors), "boxes_equal": ours == theirs,
             "images_with_boxes": len(ours), "seconds": seconds}
+
+
+def record_decode(kernel_counters):
+    """A context in which every decode call of an engine built inside it is
+    kept (inputs and outputs), with the kernels' counts set to 0 at its start:
+    yields the list of calls."""
+    from unmore_tpu_torch.reasoning import engine
+
+    calls, real = [], engine.fused_center_decode
+
+    def record(sdf, center, *args, **kwargs):  # an engine takes its decode when it is built
+        out = real(sdf, center, *args, **kwargs)
+        calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
+        return out
+
+    @contextlib.contextmanager
+    def recording():
+        engine.fused_center_decode = record
+        for counted in kernel_counters.values():
+            counted.launches = 0
+        try:
+            yield calls
+        finally:
+            engine.fused_center_decode = real
+
+    return recording()
+
+
+def decode_errors(calls):
+    """Each recorded decode call against the plain version on its inputs
+    (outside any counted run): the max abs errors of the scores; fails on a
+    union or argmax that differs."""
+    import torch
+
+    from unmore_tpu_torch.ops.fields import center_singularity_scores
+
+    errors = []
+    for sdf, center, got in calls:
+        want = center_singularity_scores(sdf, center)
+        pos = want[0] > 1e-4
+        if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
+            fail("the decode kernel's union or argmax differs from the plain version on the chain's discovery")
+        errors.append(float((got[0] - want[0]).abs().max()))
+    return errors
+
+
+def ab_rerun(work, kernel_counters):
+    """The sticky A/B's ``reference_rounds`` leg again, in this process,
+    through the script's entry on the chain's two checkpoints: decode
+    launches counted and each held against the plain version afterwards;
+    the leg's crops, annotations and AP figures against the chain's."""
+    from unmore_tpu_torch.scripts import sticky_ab
+
+    chain = chain_knobs(work)
+    out = work / "sticky_ab_rerun.json"
+    t0 = time.perf_counter()
+    with record_decode(kernel_counters) as calls:
+        sticky_ab.main(chain.ab_argv() + ["--modes", "reference_rounds", "--out", str(out)])
+    seconds = time.perf_counter() - t0
+    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    errors = decode_errors(calls)
+    n_calls = len(calls)
+    del calls[:]
+    keys = ("boundary_crops", "n_annotations", *sticky_ab.AP_KEYS)
+    ours = json.loads(out.read_text())["reference_rounds"]
+    theirs = json.loads((work / "sticky_ab_results.json").read_text())["reference_rounds"]
+    return {"launches": launches, "recorded_calls": n_calls, "decode_max_abs_err": max(errors, default=None),
+            "all_exact": bool(errors) and all(e == 0.0 for e in errors),
+            "leg_equal": all(ours[k] == theirs[k] for k in keys), "leg": {k: ours[k] for k in keys},
+            "discovery_wall_s": ours["discovery_wall_s"], "seconds": seconds}
+
+
+def ab_figures(report):
+    """The A/B sections of the chain's report, as the phase prints them."""
+    ma, sticky = report.get("max_active_ab") or {}, report.get("sticky_ab_dense") or {}
+    legs = {}
+    for name, leg in (("main", ma.get("main")), ("truncated", ma.get("truncated")),
+                      ("sticky", sticky.get("sticky")), ("reference_rounds", sticky.get("reference_rounds"))):
+        if leg:
+            legs[name] = {k: leg.get(k) for k in ("bbox_AP", "bbox_AP50", "segm_AP", "segm_AP50", "n_annotations",
+                                                  "boundary_crops", "discovery_wall_s", "active_overflow",
+                                                  "max_active") if k in leg}
+    return {"legs": legs, "delta_main_minus_truncated": ma.get("delta_main_minus_truncated"),
+            "sticky_delta": sticky.get("delta"), "sticky_ab_stale": report.get("sticky_ab_stale")}
+
+
+def ab_problems(report):
+    problems = []
+    failed = [s for s in report.get("failed_steps", []) if s.endswith("_ab")]
+    if failed:
+        problems.append(f"failed A/B steps {failed}")
+    ma = report.get("max_active_ab") or {}
+    if not (ma.get("main") and ma.get("truncated")):
+        problems.append("the report has no max_active_ab with both legs")
+    sticky = report.get("sticky_ab_dense")
+    if sticky is None:
+        problems.append(f"sticky_ab_dense is None: {report.get('sticky_ab_stale', {}).get('reason')}")
+    elif not sticky["delta"]["boundary_crop_ratio"] >= 1:
+        problems.append(f"sticky boundary_crop_ratio {sticky['delta']['boundary_crop_ratio']} < 1")
+    return problems
 
 
 def vit_pack_check(device):
@@ -2766,7 +2863,8 @@ def phase_chain(device, kernel_counters):
     if row["checks_failed"]:
         fail(f"phase chain: {row['checks_failed']}")
     shutil.rmtree(CHAIN_FOLDER)
-    return row["rerun"]["launches"]["fused_center_decode"]
+    return {"chain": row["rerun"]["launches"]["fused_center_decode"],
+            "sticky_ab": row["ab_rerun"]["launches"]["fused_center_decode"]}
 
 
 def chain_checks(work, device, kernel_counters):
@@ -2777,13 +2875,19 @@ def chain_checks(work, device, kernel_counters):
     found = json.loads((work / "results_reasoning" / a.run / "discovery_results.json").read_text())
     if 2 * len(found) < a.disc_scenes:
         problems.append(f"discovery found boxes on {len(found)} of {a.disc_scenes} scenes")
+    problems += ab_problems(report)
     rerun = chain_rerun(work, kernel_counters)
-    if not rerun["launches"]["fused_center_decode"] or rerun["recorded_calls"] != rerun["launches"]["fused_center_decode"]:
-        problems.append(f"decode launches {rerun['launches']} against {rerun['recorded_calls']} recorded calls")
-    if not rerun["all_exact"]:
-        problems.append(f"a decode launch differs from the plain version by {rerun['decode_max_abs_err']}")
+    ab = ab_rerun(work, kernel_counters)
+    for what, run in (("discovery", rerun), ("sticky A/B", ab)):
+        n = run["launches"]["fused_center_decode"]
+        if not n or run["recorded_calls"] != n:
+            problems.append(f"{what}: decode launches {run['launches']} against {run['recorded_calls']} recorded calls")
+        if not run["all_exact"]:
+            problems.append(f"{what}: a decode launch differs from the plain version by {run['decode_max_abs_err']}")
     if not rerun["boxes_equal"]:
         problems.append("the in-process discovery's boxes differ from the chain's discovery_results.json")
+    if not ab["leg_equal"]:
+        problems.append(f"the in-process reference_rounds leg {ab['leg']} differs from the chain's")
     pack = vit_pack_check(device)
     if not pack["f32_max_abs_diff"] <= pack["bound"]:
         problems.append(f"vit_pack 2 differs from 1 by {pack['f32_max_abs_diff']}")
@@ -2796,8 +2900,88 @@ def chain_checks(work, device, kernel_counters):
             "discovery": report.get("discovery", {}).get("all"), "scoring": report.get("scoring"),
             "pseudo_label_ap": {t: {k: ap.get(t, {}).get(k) for k in ("AP", "AP50")} for t in ("bbox", "segm")},
             "cad_train": report.get("cad_train"), "cad_final_eval": report.get("cad_final_eval"),
-            "supervisor_events": report.get("supervisor_events"), "rerun": rerun, "vit_pack": pack,
-            "checks_failed": problems}
+            "supervisor_events": report.get("supervisor_events"), "ab": ab_figures(report), "rerun": rerun,
+            "ab_rerun": ab, "vit_pack": pack, "checks_failed": problems}
+
+
+# ------------------------------------------------------------------ phase 12
+PARITY_FOLDER = Path("build") / "smoke_parity"
+PARITY_TOL = 1e-3
+PARITY_TAPS = tuple(f"layer{n}_rn" for n in range(1, 5)) + tuple(f"refinenet{n}" for n in range(1, 5))
+
+
+def parity_fixture(folder):
+    """DPT-Large (tanh, bg-sdf) and the ResNet-50 classifier with seeded
+    random weights, saved as reference ``.ckpt`` files, and the dump of two
+    128^2 crops through their f32 forward on the CPU with hooks at the
+    reference's taps, in the dump's NCHW layout. Returns the objectness
+    state_dict."""
+    import numpy as np
+    import torch
+
+    from unmore_tpu_torch.cli.common import build_classifier, build_objectness, init_random_variables
+
+    objectness = build_objectness(DptLarge, "float32", "cpu")
+    classifier = build_classifier("float32", "cpu")
+    init_random_variables(objectness, classifier, seed=12)
+    crops = np.random.RandomState(12).rand(2, 128, 128, 3).astype(np.float32)
+    taps, hooks = {}, []
+    for name in PARITY_TAPS:
+        def keep(_module, _inputs, out, name=name):
+            taps[name] = out.numpy()
+
+        hooks.append(getattr(objectness.backbone.scratch, name).register_forward_hook(keep))
+    with torch.no_grad():
+        out = objectness(torch.from_numpy(crops))
+        existence = classifier(torch.from_numpy(crops)).numpy()
+    for h in hooks:
+        h.remove()
+    folder.mkdir(parents=True)
+    np.savez(folder / "ref.npz", input=crops.transpose(0, 3, 1, 2),
+             center_fields=out["center_fields"].numpy().transpose(0, 3, 1, 2),
+             sdf_maps=out["sdf_maps"].numpy()[:, None], existence=existence, **taps)
+    torch.save({"model_state_dict": objectness.state_dict()}, folder / "objectness.ckpt")
+    torch.save({"model_state_dict": classifier.state_dict()}, folder / "classifier.ckpt")
+    return objectness.state_dict()
+
+
+def run_check_parity(folder, objectness_ckpt):
+    """``python -m unmore_tpu_torch.scripts.check_parity`` on the card: (exit
+    code, stdout, max abs difference by tap)."""
+    out = subprocess.run([sys.executable, "-m", "unmore_tpu_torch.scripts.check_parity", "--npz",
+                          str(folder / "ref.npz"), "--objectness_ckpt", str(objectness_ckpt), "--classifier_ckpt",
+                          str(folder / "classifier.ckpt"), "--tol", str(PARITY_TOL)],
+                         capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    diffs = {m.group(1): float(m.group(2)) for m in re.finditer(r"^\s*(\w+)\s+max\|d\|=(\S+)", out.stdout, re.M)}
+    return out.returncode, out.stdout + out.stderr[-3000:], diffs
+
+
+def phase_parity():
+    import shutil
+
+    import torch
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PARITY_FOLDER, ignore_errors=True)
+    sd = parity_fixture(PARITY_FOLDER)
+    rc, log, diffs = run_check_parity(PARITY_FOLDER, PARITY_FOLDER / "objectness.ckpt")
+    key = next(k for k in sd if k.endswith("weight") and "scratch" in k)
+    torch.save({"model_state_dict": {**sd, key: sd[key] + 0.05}}, PARITY_FOLDER / "perturbed.ckpt")
+    del sd
+    rc_bad, log_bad, diffs_bad = run_check_parity(PARITY_FOLDER, PARITY_FOLDER / "perturbed.ckpt")
+    problems = []
+    if rc != 0 or "PARITY OK" not in log:
+        problems.append(f"matching weights: exit {rc}\n{log[-3000:]}")
+    if set(diffs) != {"center_fields", "sdf_maps", "existence", *PARITY_TAPS}:
+        problems.append(f"compared {sorted(diffs)}")
+    if rc_bad != 1 or "PARITY FAIL" not in log_bad:
+        problems.append(f"perturbed {key}: exit {rc_bad}\n{log_bad[-3000:]}")
+    emit({"phase": "parity", "tol": PARITY_TOL, "max_abs_diff": diffs, "exit": rc, "perturbed": key,
+          "perturbed_exit": rc_bad, "perturbed_max_abs_diff": diffs_bad, "checks_failed": problems,
+          "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        fail(f"phase parity: {problems}")
+    shutil.rmtree(PARITY_FOLDER)
 
 
 def main():
@@ -2842,16 +3026,17 @@ def main():
     hybrid_launches = phase_hybrid(device, counters, main_path["results"], bf16)
     dist_launches = phase_dist(device, main_path["cuts"]["center_score_max_thres"])
     chain_launches = phase_chain(device, counters)
+    phase_parity()
 
     main_row = kernel_rows["random_256"]
     emit({"kernels": [{
         "name": "fused_center_decode", "route": "cuda", "source": KERNEL_SOURCES["decode"],
         "replaces": replaces_of(KERNEL_SOURCES["decode"]),
         "launches": launches["fused_center_decode"] + hybrid_launches["fused_center_decode"]
-        + sum(dist_launches.values()) + chain_launches,
+        + sum(dist_launches.values()) + sum(chain_launches.values()),
         "launches_by_path": {"dpt_large": launches["fused_center_decode"],
                              "dpt_hybrid": hybrid_launches["fused_center_decode"],
-                             **{f"dist_{k}": v for k, v in dist_launches.items()}, "chain": chain_launches},
+                             **{f"dist_{k}": v for k, v in dist_launches.items()}, **chain_launches},
         "max_abs_err": max(r["max_abs_err"] for r in (*kernel_rows.values(), chunk_row)),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,

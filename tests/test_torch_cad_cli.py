@@ -12,6 +12,7 @@ back by PyYAML equal to the JAX CLI's.
 
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -270,3 +271,24 @@ def test_training_loop_logs_checkpoints_and_fails_fast(tmp_path):
                                        [lambda: {"x": np.zeros(1)}])
     assert [os.path.basename(c["path"]) for c in summary["checkpoints"]] == [
         "model_0000010.ckpt", "model_0000020.ckpt", "model_0000025.ckpt"]
+
+
+def test_fatal_exit_waits_for_the_checkpoint_in_flight(tmp_path, monkeypatch):
+    """The same corrupt windows with every write slowed by 0.5 s: the write
+    of ``model_0000030.ckpt`` is still in flight at the fatal exit of
+    iteration 60, and the loop waits for it before exiting."""
+    save = checkpoints.save_checkpoint
+
+    def slow_save(path, tree):
+        time.sleep(0.5)
+        return save(path, tree)
+
+    monkeypatch.setattr(checkpoints, "save_checkpoint", slow_save)
+    solver = {"max_iter": 100, "ims_per_batch": 2, "warmup_iters": 30, "checkpoint_period": 10, "eval_period": 0,
+              "precise_bn": False, "precise_bn_iters": 0}
+    out = str(tmp_path / "out")
+    with pytest.raises(SystemExit) as exit_info:
+        train_net.train_detector(_StubTrainer(lambda s: 5000.0), solver, out, [lambda: {"x": np.zeros(1)}])
+    assert exit_info.value.code == FATAL_EXIT_CODE
+    assert sorted(f for f in os.listdir(out) if f.endswith(".ckpt")) == [
+        "model_0000010.ckpt", "model_0000020.ckpt", "model_0000030.ckpt"]

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no flax, nothing of the JAX package.
 
-Every module of ``unmore_tpu_torch``, the chain's ``scripts`` among them,
+Every module of ``unmore_tpu_torch``, the ``scripts`` among them,
 imports in a fresh interpreter where ``jax``, ``flax``, ``msgpack``,
 ``yaml``, ``cv2`` and ``unmore_tpu`` cannot be imported; no Python source of the port, nor its host libraries
 ``csrc/*.cpp``, nor ``chip_smoke.py``, names the JAX package; and the entry
@@ -40,9 +40,11 @@ def test_every_module_imports_without_jax():
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 30
-    # the chain's scripts, which the JAX package writes with OpenCV, import without it
-    assert {f"unmore_tpu_torch.scripts.{m}" for m in ("make_synthetic_shapes", "make_imagenet_training_json",
-                                                      "parse_discovery_stats", "scale_report", "scale_chain")} <= names
+    # the chain's scripts and the other programs, which the JAX package writes with OpenCV or JAX, import
+    # without them
+    assert {f"unmore_tpu_torch.scripts.{m}" for m in (
+        "make_synthetic_shapes", "make_imagenet_training_json", "parse_discovery_stats", "scale_report", "scale_chain",
+        "sticky_ab", "max_active_ab", "preprocess_votecut", "vis_votecut", "check_parity", "ap_vs_published")} <= names
 
 
 def test_sources_never_name_the_jax_package():
@@ -55,7 +57,7 @@ def test_sources_never_name_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["engine", "scoring_engine", "build_objectness", "build_classifier",
-                                   "resolve_device", "detector_evaluator"])
+                                   "resolve_device", "detector_evaluator", "ab_and_parity_scripts"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     from unmore_tpu_torch import resolve_device
     from unmore_tpu_torch.cli.common import build_classifier, build_objectness
@@ -63,6 +65,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
     from unmore_tpu_torch.detector.evaluation import DetectorEvaluator
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
     from unmore_tpu_torch.reasoning.scoring import ObjectScoringEngine
+    from unmore_tpu_torch.scripts import sticky_ab
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -72,6 +75,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry, monkeypatch):
         "build_classifier": lambda: build_classifier(),
         "resolve_device": lambda: resolve_device(None),
         "detector_evaluator": lambda: DetectorEvaluator(None, DetectorConfig()),
+        # the device of sticky_ab, max_active_ab and check_parity
+        "ab_and_parity_scripts": lambda: sticky_ab.main(["--synth", "w", "--objectness", "o", "--classifier", "c"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

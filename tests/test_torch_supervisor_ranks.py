@@ -91,11 +91,10 @@ def test_two_ranks_restart_together_from_the_newest_checkpoint(tmp_path):
     assert out.returncode == 0, log[-3000:]
     assert "FATAL: 2 consecutive corrupt loss windows at iter 6" in log
     assert "supervisor: child died (fail-fast)" in log and "supervisor: restart 1/1" in log
-    # both ranks resume from the newest durable checkpoint (iter 4, or iter 2 when the exit cut the
-    # write of iter 4, which then left only a .tmp file)
+    # the fatal exit waits for iter 4's write: both ranks resume from it
     run = "results_objectness/existence/sup"
     resumed = re.findall(rf"resumed from {run}/ckpt/iter_(\d)_model.ckpt at iter (\d)", log)
-    assert len(resumed) == 2 and resumed[0] == resumed[1] and resumed[0][0] == resumed[0][1] in ("2", "4"), log
+    assert len(resumed) == 2 and resumed[0] == resumed[1] and resumed[0][0] == resumed[0][1] == "4", log
     start = resumed[0][0]
 
     # an uninterrupted two-rank run from that checkpoint ends at the same bytes

@@ -16,6 +16,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +40,7 @@ from unmore_tpu_torch.cli import train_objectness_net as cli
 from unmore_tpu_torch.models.objectness import ObjectnessNet
 from unmore_tpu_torch.models.resnet import BinaryClassifier
 from unmore_tpu_torch.models.vit import ViTConfig
+from unmore_tpu_torch.train.resilience import FATAL_EXIT_CODE
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "unmore_tpu_torch"
@@ -187,12 +189,33 @@ def test_supervised_fault_injection_exits_3_and_resumes(world, tmp_path):
     assert "skipping checkpoint at iter 6 (last window corrupt)" in log
     assert "FATAL: 2 consecutive corrupt loss windows at iter 6" in log
     assert "supervisor: child died (fail-fast)" in log
-    # the restart resumes from the newest durable checkpoint (iter 4, or iter
-    # 2 when the exit cut iter 4's write, which then left only a .tmp file)
+    # the fatal exit waits for iter 4's write: the restart resumes from it
     resumed = re.search(rf"resumed from {run_dir}/ckpt/iter_(\d)_model.ckpt at iter (\d)", log)
-    assert resumed and resumed.group(1) == resumed.group(2) in ("2", "4"), log[-3000:]
+    assert resumed and resumed.group(1) == resumed.group(2) == "4", log[-3000:]
     assert marker.exists()
     assert cli.find_last_stage1_checkpoint(run_dir).endswith("iter_6_model.ckpt")
+
+
+def test_fatal_exit_waits_for_the_checkpoint_in_flight(world, tmp_path, monkeypatch):
+    """Windows 4 and 6 are corrupt: the checkpoint of iter 4 is scheduled
+    before window 4 is read, and its write, slowed by 0.5 s, is still in
+    flight at the fatal exit of iter 6. ``_fatal`` waits for it."""
+    from unmore_tpu_torch.train import checkpoints
+
+    save = checkpoints.save_checkpoint
+
+    def slow_save(path, tree):
+        time.sleep(0.5)
+        return save(path, tree)
+
+    monkeypatch.setattr(checkpoints, "save_checkpoint", slow_save)
+    monkeypatch.setenv("UNMORE_FAULT_INJECT_AT", f"4:{tmp_path / 'fault_marker'}")
+    with pytest.raises(SystemExit) as exit_info:
+        cli.main(world + ["--train_existence", "--run_name", "slow", "--train_iter", "7", "--save_ckpt_every", "2",
+                          "--log_every", "2", "--evaluate_every", "100"])
+    assert exit_info.value.code == FATAL_EXIT_CODE
+    ckpts = sorted(os.listdir("results_objectness/existence/slow/ckpt"))
+    assert ckpts == ["iter_2_model.ckpt", "iter_4_model.ckpt"], ckpts
 
 
 def test_supervisor_flag_pins_the_run_and_resumes(monkeypatch):

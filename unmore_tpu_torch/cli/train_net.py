@@ -464,6 +464,7 @@ def train_detector(trainer, solver: dict, out_dir: str, workers: list, eval_fn=N
                                                        in_warmup=step_no <= solver["warmup_iters"])
                 if detector.update(corrupt or fault_injection_active(step_no)):
                     it.close()
+                    drain()  # the skip rule keeps this snapshot from before the corrupt windows
                     mark_fault_injected()
                     print(f"FATAL: {detector.consecutive} consecutive corrupt loss windows at iter {step_no} "
                           f"(total={total}); NOT saving — restart with --resume.", flush=True)

@@ -215,10 +215,14 @@ def _resume(trainer, args) -> int:
     return start
 
 
-def _fatal(prefetch, message: str):
+def _fatal(prefetch, ckpt_writer, message: str):
+    """Exit with the fatal code once the checkpoint write in flight is
+    durable: the skip rule keeps the corrupt windows out of that snapshot, so
+    it is the newest good checkpoint a restart resumes from."""
     from unmore_tpu_torch.train.resilience import FATAL_EXIT_CODE, mark_fault_injected
 
     prefetch.close()
+    ckpt_writer.wait()
     mark_fault_injected()
     print(message, flush=True)
     sys.exit(FATAL_EXIT_CODE)
@@ -352,8 +356,9 @@ def train_center_and_boundary(args):
             # be trusted; exit without saving, a restart resumes from the last
             # periodic checkpoint (train/resilience.py)
             if detector.update(n_skipped >= n or fault_injection_active(step_no)):
-                _fatal(prefetch, f"FATAL: {detector.consecutive} consecutive fully-skipped log windows at iter "
-                                 f"{step_no}. NOT saving; restart with --resume from the last periodic checkpoint.")
+                _fatal(prefetch, ckpt_writer,
+                       f"FATAL: {detector.consecutive} consecutive fully-skipped log windows at iter "
+                       f"{step_no}. NOT saving; restart with --resume from the last periodic checkpoint.")
     ckpt_writer.wait()
     prefetch.close()
     if main_rank:
@@ -480,9 +485,10 @@ def train_existence(args):
                       f"data-starved {prefetch.starved_fraction:.1%})", flush=True)
             # a BCE window loss non-finite (or absurd) for consecutive windows
             if detector.update(detector.loss_window_corrupt(avg) or fault_injection_active(step_no)):
-                _fatal(prefetch, f"FATAL: {detector.consecutive} consecutive corrupt loss windows at iter "
-                                 f"{step_no} (loss={avg}); NOT saving; restart with --resume from the last "
-                                 f"periodic checkpoint.")
+                _fatal(prefetch, ckpt_writer,
+                       f"FATAL: {detector.consecutive} consecutive corrupt loss windows at iter "
+                       f"{step_no} (loss={avg}); NOT saving; restart with --resume from the last "
+                       f"periodic checkpoint.")
     ckpt_writer.wait()
     prefetch.close()
 

@@ -3,7 +3,8 @@ port's counterpart of ``scripts/scale_chain_r5.sh`` with the steps of
 ``scripts/scale_run_r5.sh``).
 
     python -m unmore_tpu_torch.scripts.scale_chain --work WORK [--synth WORLD] \\
-        [--steps world stage1 existence discovery scoring post_eval merge cad] [--device cpu] [knobs]
+        [--steps world stage1 existence discovery scoring post_eval merge cad max_active_ab sticky_ab] \\
+        [--device cpu] [knobs]
 
 Each step runs the port's CLIs as child processes from ``--work``, so that
 every file lands there:
@@ -25,12 +26,20 @@ every file lands there:
 6. ``merge``: the repository's ``merge_coco_and_imagenet.py`` with the
    world's ImageNet training JSON;
 7. ``cad``: ``cli.train_net`` on the merged labels, supervised, with
-   PreciseBN and evaluation on the world's scenes.
+   PreciseBN and evaluation on the world's scenes;
+8. ``max_active_ab``: ``scripts.max_active_ab`` on the dense tail (the
+   first ``--ab_end`` scenes): the merged scored file of ``scoring``
+   (discovered at ``--max_active``) against discovery and scoring again at
+   ``--ab_max_active``, into ``max_active_ab_results.json``;
+9. ``sticky_ab``: ``scripts.sticky_ab`` on the same scenes, sticky
+   convergence against the reference's rounds, into
+   ``sticky_ab_results.json``.
 
 The files are those of the JAX chain, under the same names:
 ``scale_timings.txt`` (``HH:MM:SS @epoch <stage> start|done``),
 ``step_<name>.log``, the segment logs ``<run>_<s>_<e>.log``,
 ``scoring_r5.log``, ``coco_eval_r5.log``, ``cad_r5.log``,
+``max_active_ab_r5.log``, ``sticky_ab_r5.log``,
 ``gt_discovered_subset.json``, and ``failed_steps.txt``: a step that fails
 is recorded there and the chain goes on (the exit code is then 1). At the
 end the chain writes ``scale_report.json`` (``scale_report``). The knobs
@@ -38,8 +47,10 @@ default to the r5 run's (``scale_run_r5.sh:33-101``), less those of the TPU
 build's watchdogs (``BOUNDARY_SEG``, the busy-hang timeouts), which the
 port's CLIs accept and ignore; the stats count the world's first
 ``round(scenes * dense_frac)`` scenes as dense, where r5 fixed 100 for its
-500. ``--device`` goes to every CLI, whose default is the card. The JAX
-chain's dense-tail A/B steps are not part of this chain.
+500; ``--ab_end`` and ``--ab_max_active`` stand for r5's ``AB_END`` and
+the truncated lattice of 1024 that its step 8 fixes. ``--device`` goes to
+every CLI and A/B script, whose default is the card; the A/B scripts write
+into ``--work``, never over the records under ``scripts/``.
 """
 
 from __future__ import annotations
@@ -57,7 +68,8 @@ import time
 from pathlib import Path
 
 REPO = str(Path(__file__).resolve().parents[2])
-STEPS = ("world", "stage1", "existence", "discovery", "scoring", "post_eval", "merge", "cad")
+STEPS = ("world", "stage1", "existence", "discovery", "scoring", "post_eval", "merge", "cad", "max_active_ab",
+         "sticky_ab")
 
 
 def parse_args(argv=None):
@@ -107,6 +119,9 @@ def parse_args(argv=None):
     d.add_argument("--disc_restarts", type=int, default=3)
     d.add_argument("--disc_hang_min", type=float, default=45.0)
     d.add_argument("--score_hang_min", type=float, default=None, help="default: --disc_hang_min")
+    b = p.add_argument_group("the dense-tail A/Bs")
+    b.add_argument("--ab_end", type=int, default=40, help="the A/Bs run on scenes [0, ab_end), the world's dense first")
+    b.add_argument("--ab_max_active", type=int, default=1024, help="the truncated leg's boundary lattice")
     args = p.parse_args(argv)
     if args.s1_iters % args.save_every or args.exist_iters % args.exist_save:
         # the next stages read each trainer's checkpoint of its last step
@@ -354,6 +369,28 @@ class Chain:
             "TEST.EVAL_PERIOD", str(a.cad_eval_period), "OUTPUT_DIR", a.cad_out],
             log=os.path.basename(a.cad_out) + ".log")
         self.stamp("cad done")
+
+    def ab_argv(self) -> list:
+        """The flags both A/B scripts take from the chain's knobs."""
+        a = self.a
+        return ["--synth", a.synth, "--backbone_type", a.backbone, "--objectness", self.obj_ckpt,
+                "--classifier", self.cls_ckpt, "--canvas_size", str(a.canvas), "--image_batch", str(a.image_batch),
+                "--start_idx", "0", "--end_idx", str(a.ab_end), *self.device()]
+
+    def step_max_active_ab(self):
+        a = self.a
+        self.stamp("max_active_ab start")
+        self.run(self.module("unmore_tpu_torch.scripts.max_active_ab") + self.ab_argv() + [
+            "--main_scored", os.path.join(a.work, "results_reasoning", a.run, "object_discovery_with_scores.json"),
+            "--main_max_active", str(a.max_active), "--max_active", str(a.ab_max_active),
+            "--out", os.path.join(a.work, "max_active_ab_results.json")], log="max_active_ab_r5.log")
+        self.stamp("max_active_ab done")
+
+    def step_sticky_ab(self):
+        self.stamp("sticky_ab start")
+        self.run(self.module("unmore_tpu_torch.scripts.sticky_ab") + self.ab_argv()
+                 + ["--out", os.path.join(self.a.work, "sticky_ab_results.json")], log="sticky_ab_r5.log")
+        self.stamp("sticky_ab done")
 
     # ------------------------------------------------------------------ chain
     def main(self) -> int:

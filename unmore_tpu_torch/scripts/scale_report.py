@@ -7,10 +7,16 @@
 ``discovery_stats_<tag>.json`` (``parse_discovery_stats``), the scoring
 CLI's device / host split in ``scoring_<tag>.log``, the pseudo-labels' AP
 in ``ap_score_pseudo.json``, the CAD's metrics files and its ``'ips'`` and
-``'data_starved'`` log lines, and the supervisors' restarts in the step
-logs. This folds them into one JSON. The parsers are the JAX script's; the
-report leaves out its dense-tail A/B sections, whose steps the port's chain
-does not run.
+``'data_starved'`` log lines, the supervisors' restarts in the step logs,
+and the dense-tail A/Bs (``max_active_ab_results.json``,
+``sticky_ab_results.json``). This folds them into one JSON. The parsers and
+the A/B sections are the JAX script's, read from ``--work`` where the JAX
+script reads its repository's ``scripts/``. The sticky A/B counts as dense
+(``sticky_ab_dense``) only when it is fresh; else it goes under
+``sticky_ab_stale`` with the first reason of: a byte copy of the round-3
+sparse archive ``scripts/sticky_ab_results_r3_sparse.json`` (read only), a
+``sticky`` step in ``failed_steps.txt``, a leg without ``meta``, or legs of
+different worlds.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import glob
 import json
 import os
 import re
+from pathlib import Path
+
+R3_SPARSE_ARCHIVE = str(Path(__file__).resolve().parents[2] / "scripts" / "sticky_ab_results_r3_sparse.json")
 
 
 def parse_timings(path: str) -> dict:
@@ -168,6 +177,30 @@ def newest_json(pattern: str):
         return os.path.join(os.path.basename(os.path.dirname(p)), os.path.basename(p)), json.load(f)
 
 
+def sticky_section(path: str, failed_steps: list) -> dict:
+    """``{"sticky_ab_dense": results}`` when the sticky A/B at ``path`` is
+    fresh, else ``{"sticky_ab_dense": None, "sticky_ab_stale": {"reason",
+    "results"}}``, the staleness rules tried in the JAX report's order."""
+    with open(path) as f:
+        raw = f.read()
+    sticky = json.loads(raw)
+    stale_reason = None
+    if os.path.isfile(R3_SPARSE_ARCHIVE):
+        with open(R3_SPARSE_ARCHIVE) as f:
+            if f.read() == raw:
+                stale_reason = "byte-identical to the r3 sparse archive"
+    if any("sticky" in s for s in failed_steps):
+        stale_reason = stale_reason or "step_sticky_ab in failed_steps"
+    metas = [sticky.get(m, {}).get("meta") for m in ("sticky", "reference_rounds")]
+    if stale_reason is None and not all(metas):
+        stale_reason = "legs lack a provenance stamp (pre-r5 run)"
+    if stale_reason is None and sticky.get("delta_legs_comparable") is False:
+        stale_reason = "legs ran on different worlds (meta mismatch)"
+    if stale_reason is None:
+        return {"sticky_ab_dense": sticky}
+    return {"sticky_ab_dense": None, "sticky_ab_stale": {"reason": stale_reason, "results": sticky}}
+
+
 def report(work: str, tag: str = "r5") -> dict:
     """The report of the chain run in ``work``."""
     out: dict = {"work_dir": work, "tag": tag}
@@ -189,13 +222,21 @@ def report(work: str, tag: str = "r5") -> dict:
     if cad_metrics:
         out["cad_final_eval"] = {"file": cad_name, "metrics": cad_metrics}
     out["cad_train"] = parse_cad_log(os.path.join(work, f"cad_{tag}.log"))
+    ma_path = os.path.join(work, "max_active_ab_results.json")
+    if os.path.isfile(ma_path):
+        with open(ma_path) as f:
+            out["max_active_ab"] = json.load(f)
     events = parse_supervisor_events(work)
     if events:
         out["supervisor_events"] = events
     failed = os.path.join(work, "failed_steps.txt")
+    failed_steps = []
     if os.path.isfile(failed):
         with open(failed) as f:
-            out["failed_steps"] = [line.strip() for line in f if line.strip()]
+            failed_steps = out["failed_steps"] = [line.strip() for line in f if line.strip()]
+    sticky_path = os.path.join(work, "sticky_ab_results.json")
+    if os.path.isfile(sticky_path):
+        out.update(sticky_section(sticky_path, failed_steps))
     return out
 
 

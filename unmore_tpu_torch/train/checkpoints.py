@@ -357,9 +357,9 @@ class AsyncCheckpointer:
     for those copies, pulls them to the host on a side stream, builds the
     tree and writes it (atomically, as :func:`save_checkpoint`). One save is
     in flight at a time: a new :meth:`save` first drains the previous one.
-    :meth:`wait` drains before exit. A fatal exit while a write is in flight
-    leaves only ``<path>.tmp``: the newest durable checkpoint stays the
-    previous one.
+    :meth:`wait` drains before exit, a fatal one included: the CLIs wait for
+    the write in flight before they exit on corrupt loss windows, so the
+    newest good checkpoint is on disk when a restart looks for it.
     """
 
     def __init__(self):

@@ -5,7 +5,7 @@ Colour maps in numpy, PNG files through PIL (imported where a file is
 written). Center fields as HSV direction wheels (hue = angle, saturation =
 norm), SDF maps blue-negative / red-positive, masks and anti-center maps in
 gray. Written by ``--visualize_every`` and ``--eval_mode`` of the stage-1
-CLI.
+CLI. Instance-label maps in hues (``vis_label_map``) for ``vis_votecut``.
 """
 
 from __future__ import annotations
@@ -42,6 +42,30 @@ def sdf_to_rgb(sdf: np.ndarray) -> np.ndarray:
     img[..., 0] = np.clip(v, 0, 1) * 255
     img[..., 2] = np.clip(-v, 0, 1) * 255
     return img
+
+
+def get_mask_plot_colors(nr_colors: int) -> np.ndarray:
+    """``nr_colors`` uniformly spaced hues as float RGB in [0, 1] (the
+    reference's ``utils/vis.py:11-16``)."""
+    import colorsys
+
+    return np.array(
+        [colorsys.hsv_to_rgb(h, 1.0, 1.0) for h in np.linspace(0, 1, max(nr_colors, 1), endpoint=False)],
+        np.float32,
+    )
+
+
+def vis_label_map(labels: np.ndarray) -> np.ndarray:
+    """Integer instance-label map -> uint8 RGB, one hue a label in ascending
+    order and label 0 black (the reference's ``vis_GT_gray``)."""
+    labels = np.asarray(labels)
+    ids = np.unique(labels)
+    ids = ids[ids != 0]
+    cmap = get_mask_plot_colors(len(ids))
+    out = np.zeros((*labels.shape, 3), np.float32)
+    for i, lab in enumerate(ids):
+        out[labels == lab] = cmap[i]
+    return (out * 255).astype(np.uint8)
 
 
 def gray(m: np.ndarray) -> np.ndarray:
