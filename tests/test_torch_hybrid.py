@@ -16,9 +16,10 @@ function, built once per file. Tolerances:
 * bf16: the standardised kernels equal ``bf16(standardise(f32 w))``
   exactly, and equal the JAX package's standardisation cast to bf16; each bf16 trunk tap and output within rel L2 0.1 of the JAX
   package's bf16 one and no further from the f32 result than twice JAX's own
-  bf16 distance (at these widths both lie 0.6-5% from f32; the port rounds
-  the GroupNorm scales and biases to bf16, the JAX package keeps them in
-  f32: measured ratios 1.03-1.41);
+  bf16 distance (at these widths both lie 0.6-5% from f32; measured ratios
+  0.89-1.37 with the GroupNorms' leaves kept in f32 as the JAX package keeps
+  them, 1.03-1.41 when the port rounded them to bf16: what remains is not
+  the norms', which ``tests/test_torch_bf16_norms.py`` holds to one ulp);
 * one SGD step of the stage-1 trainers in f32: each loss term rtol 1e-5,
   parameters after the step (rate 0.01) 2e-6, each leaf's move within 1e-3
   of the JAX move's L2 norm (``tests/test_torch_train.py``'s gradient

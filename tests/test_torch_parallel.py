@@ -52,9 +52,10 @@ from unmore_tpu_torch.models.convert import classifier_state_dict_from_flax
 from unmore_tpu_torch.models.objectness import ObjectnessNet
 from unmore_tpu_torch.models.vit import ViTConfig
 from unmore_tpu_torch.parallel import distributed, mesh
-from unmore_tpu_torch.train.detector import DetectorTrainer, split_key
+from unmore_tpu_torch.train.detector import DetectorTrainer
 from unmore_tpu_torch.train.objectness import ObjectnessTrainer
 from unmore_tpu_torch.train.optim import init_like_flax
+from unmore_tpu_torch.utils import prng
 from tests import torch_parallel_workers
 
 JOIN_TIMEOUT_S = 450
@@ -313,7 +314,7 @@ def test_cad_steps_equal_one_rank_steps_and_skip_a_nonfinite_global_step_on_both
     a, b = (r["cad"] for r in world["ranks"])
     # parameters and statistics after the first step, the trace after the second: equal bits
     assert a["digest"] == b["digest"]
-    rng = split_key(split_key(np.zeros(2, np.uint32))[0])[0]  # one key split a step on every rank
+    rng = prng.split(prng.split(prng.prng_key(0))[0])[0].numpy()  # one key split a step on every rank
     for r in (a, b):
         assert np.isclose(r["losses"][0], first, rtol=1e-10)
         # rank 1's NaN made the global loss NaN: both ranks skipped the step and

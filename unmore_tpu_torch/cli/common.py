@@ -43,7 +43,8 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_objectness(args_like, dtype="bfloat16", device=None) -> ObjectnessNet:
-    """ObjectnessNet in eval mode on ``device`` (None = cuda) in ``dtype``."""
+    """ObjectnessNet in eval mode on ``device`` (None = cuda) in ``dtype``;
+    in bf16 its norms keep float32 leaves (``models/norms.py``)."""
     model = ObjectnessNet(
         backbone_type=getattr(args_like, "backbone_type", "dpt_large"),
         sdf_activation=getattr(args_like, "sdf_activation", None),
@@ -55,6 +56,8 @@ def build_objectness(args_like, dtype="bfloat16", device=None) -> ObjectnessNet:
 
 
 def build_classifier(dtype="bfloat16", device=None) -> BinaryClassifier:
+    """The existence classifier in eval mode on ``device`` in ``dtype``; in
+    bf16 its BatchNorms keep float32 parameters and statistics."""
     return BinaryClassifier().to(resolve_device(device), DTYPES[dtype]).eval()
 
 

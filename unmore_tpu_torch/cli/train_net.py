@@ -339,17 +339,19 @@ def batch_workers(dataset_fn, det_cfg, solver: dict, n_workers: int) -> list:
 def make_trainer(det_cfg, solver: dict, device, dtype: str = "bfloat16", seed: int = 0):
     """A :class:`~unmore_tpu_torch.train.detector.DetectorTrainer` of the
     config's detector with f32 master weights (random, from ``seed``) on
-    ``device`` and the solver's SGD."""
+    ``device``, the solver's SGD and the random key ``PRNGKey(0)``, as
+    ``cad/train_net.py`` starts."""
     import torch
 
     from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
     from unmore_tpu_torch.train.detector import DetectorTrainer
     from unmore_tpu_torch.train.optim import init_like_flax
+    from unmore_tpu_torch.utils.prng import prng_key
 
     model = CascadeMaskRCNN(dataclasses.replace(det_cfg, dtype=torch.float32))
     init_like_flax(model, seed)
     optim = {k: solver[k] for k in ("base_lr", "weight_decay", "warmup_iters", "steps", "gamma", "clip_norm")}
-    return DetectorTrainer(model.to(device), det_cfg, optim, dtype=dtype)
+    return DetectorTrainer(model.to(device), det_cfg, optim, dtype=dtype, rng=prng_key(0))
 
 
 def load_training_state(trainer, path: str):
@@ -367,8 +369,9 @@ def load_training_state(trainer, path: str):
 
 def eval_model_of(trainer, stats: dict | None = None):
     """A copy of the trainer's detector for evaluation: eval mode, in the
-    config's dtype, with ``stats`` (buffer name -> tensor, PreciseBN's) in
-    place of its BatchNorm statistics."""
+    config's dtype (the BatchNorms keep float32 parameters and statistics),
+    with ``stats`` (buffer name -> tensor, PreciseBN's) in place of its
+    BatchNorm statistics."""
     from unmore_tpu_torch.detector.cascade_rcnn import CascadeMaskRCNN
 
     model = CascadeMaskRCNN(trainer.cfg)

@@ -40,6 +40,7 @@ from unmore_tpu_torch.detector.heads import (
 from unmore_tpu_torch.detector.roi_align import ROI_LEVELS, RoIFeatures
 from unmore_tpu_torch.detector.rpn import RPNHead, generate_proposals, rpn_losses, stable_topk
 from unmore_tpu_torch.ops.nms import nms_mask
+from unmore_tpu_torch.utils import prng
 
 PIXEL_MEAN = np.array([123.675, 116.280, 103.530], np.float32) / 255.0
 PIXEL_STD = np.array([58.395, 57.120, 57.375], np.float32) / 255.0
@@ -215,14 +216,20 @@ def train_proposal_count(cfg: DetectorConfig) -> int:
     return min(cfg.rpn_post_nms_topk_train, k)
 
 
-def uniform_draws(cfg: DetectorConfig, batch_size: int, generator: torch.Generator, device) -> dict:
-    """The training forward's random draws in [0, 1): "rpn" [B, anchors] for
-    the anchor sampler, "stage0" [B, proposals + max_gt] for the stage-0
-    sampler (the JAX package draws them with ``jax.random.uniform``)."""
+def uniform_draws(cfg: DetectorConfig, step_key, batch_size: int, device, start: int = 0,
+                  stop: int | None = None) -> dict:
+    """The training forward's random draws in [0, 1) for images ``[start,
+    stop)`` (default: all) of a global batch of ``batch_size``: "rpn"
+    [images, anchors] for the anchor sampler, "stage0" [images, proposals +
+    max_gt] for the stage-0 sampler. The JAX package's: image ``b`` takes
+    rows ``2b`` and ``2b + 1`` of ``jax.random.split(step_key, 2 *
+    batch_size)`` and draws ``jax.random.uniform`` under each; the rows are
+    computed on ``device``."""
+    stop = batch_size if stop is None else stop
+    keys = prng.split(step_key, 2 * batch_size, 2 * start, 2 * stop, device=device).view(-1, 2, 2)
     n_anchors = sum(len(a) for a in anchor_lib.fpn_anchors(cfg.image_size))
-    return {"rpn": torch.rand((batch_size, n_anchors), generator=generator, device=device),
-            "stage0": torch.rand((batch_size, train_proposal_count(cfg) + cfg.max_gt), generator=generator,
-                                 device=device)}
+    return {"rpn": prng.uniform(keys[:, 0], n_anchors),
+            "stage0": prng.uniform(keys[:, 1], train_proposal_count(cfg) + cfg.max_gt)}
 
 
 def detector_forward_train(model: CascadeMaskRCNN, cfg: DetectorConfig, batch: dict, uniform: dict) -> dict:

@@ -25,7 +25,9 @@ DPT module.
 The kernels are standardised from float32. A dtype cast of the model to
 bf16 or fp16 leaves ``StdConv2dSame`` kernels in float32 (the JAX package
 keeps float32 parameters and casts the standardised kernel to the compute
-dtype; standardising an already-rounded kernel gives other bits).
+dtype; standardising an already-rounded kernel gives other bits), and the
+GroupNorms' scales and biases too: they normalise in float32 and round once,
+as flax's ``GroupNorm`` does (``models/norms.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unmore_tpu_torch.models.norms import GroupNorm, KeepsFloat32
 from unmore_tpu_torch.models.vit import ViTBackbone, ViTConfig
 
 WS_EPS = 1e-8
@@ -71,7 +74,7 @@ def standardize(w: torch.Tensor) -> torch.Tensor:
     return (w - mean) / torch.sqrt(var + WS_EPS)
 
 
-class StdConv2dSame(nn.Conv2d):
+class StdConv2dSame(KeepsFloat32, nn.Conv2d):
     """timm's ``StdConv2dSame(eps=1e-8)``: weight standardisation, TF-SAME padding, no bias."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1):
@@ -87,13 +90,6 @@ class StdConv2dSame(nn.Conv2d):
             x = F.pad(x, explicit)
         return F.conv2d(x, self.kernel(x.dtype), None, self.stride, padding)
 
-    def _apply(self, fn, recurse=True):
-        w = self.weight.data
-        super()._apply(fn, recurse)
-        if self.weight.dtype in (torch.bfloat16, torch.float16):  # keep the float32 master (module note)
-            self.weight.data = w.to(self.weight.device, torch.float32)
-        return self
-
 
 class DownsampleConv(nn.Module):
     """The shortcut of a stage's first block: 1x1 ``StdConv2dSame`` + GroupNorm, no activation."""
@@ -101,7 +97,7 @@ class DownsampleConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, stride: int, groups: int):
         super().__init__()
         self.conv = StdConv2dSame(in_ch, out_ch, 1, stride)
-        self.norm = nn.GroupNorm(groups, out_ch, eps=GN_EPS)
+        self.norm = GroupNorm(groups, out_ch, eps=GN_EPS)
 
     def forward(self, x):
         return self.norm(self.conv(x))
@@ -114,11 +110,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         self.downsample = DownsampleConv(in_ch, out, stride, groups) if downsample else None
         self.conv1 = StdConv2dSame(in_ch, mid, 1)
-        self.norm1 = nn.GroupNorm(groups, mid, eps=GN_EPS)
+        self.norm1 = GroupNorm(groups, mid, eps=GN_EPS)
         self.conv2 = StdConv2dSame(mid, mid, 3, stride)
-        self.norm2 = nn.GroupNorm(groups, mid, eps=GN_EPS)
+        self.norm2 = GroupNorm(groups, mid, eps=GN_EPS)
         self.conv3 = StdConv2dSame(mid, out, 1)
-        self.norm3 = nn.GroupNorm(groups, out, eps=GN_EPS)
+        self.norm3 = GroupNorm(groups, out, eps=GN_EPS)
 
     def forward(self, x):
         shortcut = x if self.downsample is None else self.downsample(x)
@@ -135,7 +131,7 @@ class ResNetV2Stages(nn.Module):
         super().__init__()
         self.stem = nn.Module()
         self.stem.conv = StdConv2dSame(in_chans, stem_width, 7, 2)
-        self.stem.norm = nn.GroupNorm(groups, stem_width, eps=GN_EPS)
+        self.stem.norm = GroupNorm(groups, stem_width, eps=GN_EPS)
         self.stages = nn.ModuleList()
         in_ch = stem_width
         for s, ((mid, out), nb) in enumerate(zip(stage_widths, stage_blocks)):

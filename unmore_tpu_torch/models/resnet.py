@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from unmore_tpu_torch.models.norms import KeepsFloat32
 from unmore_tpu_torch.parallel import distributed
 
 FLAX_BN_MOMENTUM = 0.9  # running = m * running + (1 - m) * batch
@@ -92,10 +93,12 @@ class _GlobalBatchNorm(torch.autograd.Function):
         return dx.to(x.dtype), dweight.to(weight.dtype), dbias.to(weight.dtype), None, None
 
 
-class BatchNorm2d(nn.BatchNorm2d):
+class BatchNorm2d(KeepsFloat32, nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's running-statistics update in train mode
     (skipped while ``update_stats`` is false), over the global batch when
-    the run has several ranks."""
+    the run has several ranks. A cast to bf16 keeps its parameters and
+    statistics in float32, and an eval-mode forward normalises a bf16 input
+    against them in float32 (``models/norms.py``)."""
 
     update_stats = True
 

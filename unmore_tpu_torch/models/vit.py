@@ -2,7 +2,9 @@
 
 timm's ``vit_large_patch16_384`` / ``vit_base_patch16_384`` layout: pre-LN
 blocks, fused qkv with bias, exact GELU MLP, no final norm (DPT reads only
-the hooked block outputs). Parameter names follow the reference checkpoint
+the hooked block outputs). The LayerNorms keep float32 scales and biases in
+a bf16 model and normalise in float32 (flax's, ``models/norms.py``).
+Parameter names follow the reference checkpoint
 (``backbone.pretrained.model.*`` once nested in the DPT module). Position
 embeddings are stored at the pretraining grid and bilinearly resized
 (``align_corners=False``) to the runtime grid. Attention is a plain matmul
@@ -26,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from unmore_tpu_torch.models.norms import LayerNorm
 from unmore_tpu_torch.ops.image import resize_bilinear
 
 
@@ -80,9 +83,9 @@ class Attention(nn.Module):
 class Block(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_dim: int):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, mlp_dim)
 
     def forward(self, x, attn_bias=None):

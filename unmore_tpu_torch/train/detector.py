@@ -21,18 +21,18 @@ package's step. It is decided on the card, with no host sync.
 The checkpoint tree is the JAX package's ``DetectorTrainState``: ``{step,
 params, batch_stats, opt_state, rng}`` with the optimizer state in optax's
 chain layout ``{"0": {}, "1": {}, "2": {"0": {"trace"}, "1": {"count"}}}``
-and ``rng`` a uint32[2] key. The samplers' uniform draws come from a
-``torch.Generator`` seeded each step from a key split off ``rng`` (by
-splitmix64 on the host), so a resumed run draws what an uninterrupted one
-would; the JAX package draws with ``jax.random``, so the two packages'
-samples differ from the first step.
+and ``rng`` a uint32[2] ``jax.random`` key. Each step splits ``rng`` into
+the next key and the step's key, and the samplers draw under the step's key,
+as the JAX package's step does, with :mod:`unmore_tpu_torch.utils.prng`:
+both packages draw the same numbers, and a run resumed from either
+package's checkpoint continues that run's stream.
 
 Over several ranks each rank takes its rows of the global batch. The flat
 gradient is averaged by one all-reduce, the BatchNorms take the global
 batch's statistics, the non-finite decision reads the global batch's loss,
-and every rank draws the global batch's draws from the same generator state
-and keeps its rows: a step of N ranks samples what a step of one rank on the
-whole batch samples.
+and every rank computes its own rows of the split of the step's key into
+the global batch's image keys: a step of N ranks samples what a step of one
+rank on the whole batch samples.
 """
 
 from __future__ import annotations
@@ -45,23 +45,7 @@ from unmore_tpu_torch.detector.convert import flax_from_state_dict, state_dict_f
 from unmore_tpu_torch.parallel import distributed
 from unmore_tpu_torch.train.objectness import mean_over_ranks
 from unmore_tpu_torch.train.optim import FlatParams
-
-_MASK64 = (1 << 64) - 1
-_GOLDEN = 0x9E3779B97F4A7C15
-
-
-def _splitmix64(x: int) -> int:
-    z = (x + _GOLDEN) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
-
-
-def split_key(rng: np.ndarray) -> tuple[np.ndarray, int]:
-    """(the next uint32[2] key, a 63-bit generator seed) from a uint32[2] key."""
-    x = (int(rng[0]) << 32) | int(rng[1])
-    nxt = _splitmix64(x)
-    return np.array([nxt >> 32, nxt & 0xFFFFFFFF], np.uint32), _splitmix64(x ^ _MASK64) >> 1
+from unmore_tpu_torch.utils import prng
 
 
 class DetectorSGD:
@@ -119,7 +103,8 @@ class DetectorTrainer:
     model's dtype: f32 master weights, or f64 for reference checks), the
     optimizer, the step count and the random key, all on the model's
     device; one guarded step at a time (:meth:`train_step`). ``dtype``
-    "bfloat16" runs the forward under autocast."""
+    "bfloat16" runs the forward under autocast. ``rng``: the uint32[2] key,
+    kept on the host."""
 
     def __init__(self, model: torch.nn.Module, cfg: DetectorConfig, optim: dict | None = None,
                  dtype: str = "bfloat16", rng=(0, 0)):
@@ -139,7 +124,6 @@ class DetectorTrainer:
         self.step = torch.zeros((), dtype=torch.int32, device=self.device)
         self.skipped = torch.zeros((), dtype=torch.int32, device=self.device)  # steps skipped since creation
         self.rng = np.asarray(rng, np.uint32).reshape(2)
-        self.generator = torch.Generator(device=self.device)
         self.bf16 = dtype == "bfloat16"
 
     def _stat_views(self, flat) -> list[torch.Tensor]:
@@ -152,13 +136,14 @@ class DetectorTrainer:
 
     def next_draws(self, batch_size: int) -> dict:
         """The samplers' draws of the next step for this rank's
-        ``batch_size`` images: the global batch's draws, from a key split
-        off ``rng`` (the same on every rank), cut to this rank's rows."""
-        self.rng, seed = split_key(self.rng)
-        self.generator.manual_seed(seed)
-        n, r = distributed.process_count(), distributed.process_index()
-        draws = uniform_draws(self.cfg, batch_size * n, self.generator, self.device)
-        return {k: v[r * batch_size:(r + 1) * batch_size] for k, v in draws.items()}
+        ``batch_size`` images: ``rng, step = jax.random.split(rng)`` (the
+        same on every rank), then this rank's rows of the global batch's
+        draws under ``step``."""
+        keys = prng.split(self.rng)
+        self.rng = keys[0].numpy().astype(np.uint32)
+        r = distributed.process_index()
+        return uniform_draws(self.cfg, keys[1], batch_size * distributed.process_count(), self.device,
+                             r * batch_size, (r + 1) * batch_size)
 
     def loss(self, batch: dict, uniform: dict | None = None) -> dict:
         """The losses of a batch of tensors on the card, with the graph, and
