@@ -10,8 +10,8 @@ parse first:
 * a reference PyTorch ``.ckpt`` (``{'model_state_dict': ...}``);
 * a plain state_dict saved by this package.
 
-Without a checkpoint, :func:`init_random_variables` fills the models from a
-seeded generator.
+Without a checkpoint, :func:`init_random_variables` fills the models with
+the JAX package's seeded flax init.
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ import contextlib
 import datetime
 import hashlib
 import json
-import math
 import os
 import sys
 import time
@@ -34,6 +33,7 @@ from unmore_tpu_torch.models.convert import (
     classifier_state_dict_from_flax, load_objectness_state_dict, load_torch_checkpoint,
     objectness_state_dict_from_flax,
 )
+from unmore_tpu_torch.models.flax_init import init_like_flax
 from unmore_tpu_torch.models.objectness import ObjectnessNet
 from unmore_tpu_torch.models.resnet import BinaryClassifier
 from unmore_tpu_torch.parallel import distributed, mesh
@@ -86,31 +86,14 @@ def load_classifier_weights(model: BinaryClassifier, path: str):
     model.load_state_dict(sd, strict=True)
 
 
-@torch.no_grad()
 def init_random_variables(*models: torch.nn.Module, seed: int = 0):
-    """Fill each model with random weights from a generator seeded with
-    ``seed`` on its device (for runs without checkpoints): weights ~ N(0,
-    1/fan_in), biases zero, norms identity, position embeddings ~ N(0,
-    0.02^2), BN statistics mean 0 / var 1. A model's weights depend only on
-    the seed, not on its dtype beyond rounding or on the other models."""
+    """Fill each model, on its device, with the weights of the JAX package's
+    ``init_random_variables`` for the same seed: flax's init of every model
+    from the one root key ``PRNGKey(seed)`` (``models/flax_init.py``). A
+    model's weights depend only on the seed, not on its dtype beyond
+    rounding or on the other models."""
     for model in models:
-        dev = next(model.parameters()).device
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("pos_embed", "cls_token"):
-                std = 0.02
-            elif p.ndim >= 2:
-                std = 1.0 / math.sqrt(p[0].numel())
-            else:
-                p.fill_(1.0 if leaf == "weight" else 0.0)
-                continue
-            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
-        for name, b in model.named_buffers():
-            if name.endswith("running_mean"):
-                b.zero_()
-            elif name.endswith("running_var"):
-                b.fill_(1.0)
+        init_like_flax(model, seed)
 
 
 def make_apply_fns(objectness: torch.nn.Module, classifier: torch.nn.Module):

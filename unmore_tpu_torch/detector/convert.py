@@ -48,52 +48,71 @@ def _module_name(path) -> str:
     return name
 
 
+def _port(leaf, perm) -> torch.Tensor:
+    """A JAX leaf (numpy, JAX or a torch tensor, which stays on its device
+    as a view) -> float32 tensor, its axes permuted by ``perm``."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.permute(perm) if perm else leaf
+    a = np.asarray(leaf, np.float32)
+    return _t(np.transpose(a, perm) if perm else a)
+
+
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX detector variables ``{"params", "batch_stats"}`` (numpy or JAX
-    leaves) -> the port's state dict, float32."""
+    """JAX detector variables ``{"params", "batch_stats"}`` (numpy, JAX or
+    torch leaves) -> the port's state dict, float32."""
     sd: dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(variables["params"]):
         mod, name = _module_name(path[:-1]), path[-1]
-        a = np.asarray(leaf, np.float32)
         if name == "kernel":
-            sd[mod + ".weight"] = _t(np.transpose(a, (3, 2, 0, 1)) if a.ndim == 4 else a.T)
+            sd[mod + ".weight"] = _port(leaf, (3, 2, 0, 1) if leaf.ndim == 4 else (1, 0))
         elif name in ("scale", "bias"):
-            sd[mod + (".weight" if name == "scale" else ".bias")] = _t(a)
+            sd[mod + (".weight" if name == "scale" else ".bias")] = _port(leaf, None)
         else:
             raise KeyError(f"unexpected detector parameter {'/'.join(path)}")
     for path, leaf in _leaves(variables.get("batch_stats", {})):
         mod = _module_name(path[:-1])
-        sd[mod + (".running_mean" if path[-1] == "mean" else ".running_var")] = _t(leaf)
+        sd[mod + (".running_mean" if path[-1] == "mean" else ".running_var")] = _port(leaf, None)
         sd[mod + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def flax_layout(sd: Mapping[str, Any]) -> dict[str, tuple[tuple[str, ...], str]]:
+    """For each key of the port's state dict ``sd`` (tensors or arrays) that
+    the JAX variables hold: its path there (``params`` or ``batch_stats``
+    first) and its layout rule, "conv" (OIHW <-> HWIO; IOHW <-> HWOI for the
+    transposed conv), "linear" ([out, in] <-> [in, out]) or "vec"."""
+    bn = {k.rsplit(".", 1)[0] for k in sd if k.endswith(".running_mean")}
+    out = {}
+    for key, value in sd.items():
+        mod, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        path = mod
+        for flax_name, port_name in _TO_PORT:
+            path = path.replace(port_name, flax_name)
+        path = tuple(path.split("."))
+        if leaf in ("running_mean", "running_var"):
+            out[key] = (("batch_stats", *path, "mean" if leaf == "running_mean" else "var"), "vec")
+        elif leaf == "weight" and mod not in bn:
+            out[key] = (("params", *path, "kernel"), "conv" if value.ndim == 4 else "linear")
+        else:
+            out[key] = (("params", *path, "scale" if leaf == "weight" else "bias"), "vec")
+    return out
 
 
 def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
     """The port's state dict -> JAX variables ``{"params", "batch_stats"}``
     of numpy float32 leaves (the inverse of :func:`state_dict_from_flax`)."""
     out: dict = {"params": {}, "batch_stats": {}}
-    for key, value in sd.items():
-        mod, leaf = key.rsplit(".", 1)
-        if leaf == "num_batches_tracked":
-            continue
+    for key, (path, kind) in flax_layout(sd).items():
+        value = sd[key]
         a = value.detach().cpu().float().numpy() if isinstance(value, torch.Tensor) else np.asarray(value, np.float32)
-        path = mod
-        for flax_name, port_name in _TO_PORT:
-            path = path.replace(port_name, flax_name)
-        path = path.split(".")
-        is_bn = f"{mod}.running_mean" in sd
-        if leaf in ("running_mean", "running_var"):
-            col, name = "batch_stats", ("mean" if leaf == "running_mean" else "var")
-        elif leaf == "weight":
-            col, name = "params", ("scale" if is_bn else "kernel")
-            if not is_bn:
-                a = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a.T
-        else:
-            col, name = "params", "bias"
-        node = out[col]
-        for p in path:
+        if kind != "vec":
+            a = np.transpose(a, (2, 3, 1, 0)) if kind == "conv" else a.T
+        node = out
+        for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[name] = np.ascontiguousarray(a)
+        node[path[-1]] = np.ascontiguousarray(a)
     return out
 
 

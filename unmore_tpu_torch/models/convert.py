@@ -305,13 +305,24 @@ def flax_tree(tensors: Mapping[str, Any], layout) -> dict:
     return tree
 
 
+def flax_shape(shape, kind: str) -> tuple[int, ...]:
+    """A port tensor's shape in the JAX tree under the layout rule ``kind``
+    ("conv", "linear" or "vec")."""
+    perm = _TO_FLAX.get(kind)
+    return tuple(shape) if perm is None else tuple(shape[i] for i in perm)
+
+
 def tensors_from_flax(tree: Mapping[str, Any], layout) -> dict[str, torch.Tensor]:
-    """The inverse of :func:`flax_tree`: a JAX tree -> f32 tensors by key."""
+    """The inverse of :func:`flax_tree`: a JAX tree -> f32 tensors by key. A
+    tree of torch tensors stays on its device (the leaves become views)."""
     out = {}
     for k, (path, kind) in layout.items():
         a = tree
         for p in path:
             a = a[p]
+        if isinstance(a, torch.Tensor):
+            out[k] = a.permute(_FROM_FLAX[kind]) if kind in _FROM_FLAX else a
+            continue
         a = np.asarray(a, np.float32)
         out[k] = _t(np.transpose(a, _FROM_FLAX[kind]) if kind in _FROM_FLAX else a)
     return out

@@ -165,6 +165,8 @@ class DetectorTrainer:
         losses["total"].backward()
         distributed.all_reduce_mean_(self.flat.grad)
         losses = mean_over_ranks(losses)
+        # the global batch's total is the sum of its terms, as :meth:`loss` sums them
+        losses["total"] = sum(v for k, v in losses.items() if k != "total")
         ok = torch.isfinite(losses["total"])
         self.opt.step(ok)
         torch.where(ok, self.stats, stats, out=self.stats)

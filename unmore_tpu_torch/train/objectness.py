@@ -67,12 +67,14 @@ def objectness_losses(out: dict, batch: dict, cfg: TrainObjectnessConfig) -> dic
 
 
 def mean_over_ranks(losses: dict) -> dict:
-    """The losses, detached, each the mean over the ranks (one all-reduce):
-    the global batch's losses, on which every rank decides alike."""
+    """The losses, detached, each the mean over the ranks (one all-reduce)
+    in its own dtype: the global batch's losses, on which every rank decides
+    alike. A float32 loss beside float64 ones (the detector's RPN terms in a
+    float64 model) is rounded to float32, as the global batch's mean is."""
     out = {k: v.detach() for k, v in losses.items()}
     if distributed.world() is not None:
         flat = distributed.all_reduce_mean_(torch.stack(list(out.values())))
-        out = dict(zip(out, flat.unbind()))
+        out = {k: x.to(out[k].dtype) for k, x in zip(out, flat.unbind())}
     return out
 
 

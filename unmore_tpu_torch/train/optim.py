@@ -1,5 +1,6 @@
 """Optimizer state of the stage-1 trainers: flat parameters, optax's three
-optimizers and flax's initializers, in torch.
+optimizers, in torch; fresh weights come from
+:func:`unmore_tpu_torch.models.flax_init.init_like_flax`.
 
 :class:`FlatParams` keeps the trainable parameters of a model as views of
 one flat float32 buffer and their gradients as views of another, so that an
@@ -26,16 +27,14 @@ int32 scalars.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
 from unmore_tpu_torch.config import OptimConfig
+from unmore_tpu_torch.models.flax_init import init_like_flax  # noqa: F401  (the trainers' fresh weights)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 LARS_TRUST, LARS_MOMENTUM = 1e-3, 0.9
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 class FlatParams:
@@ -67,33 +66,6 @@ class FlatParams:
     def flatten(self, tensors: dict) -> torch.Tensor:
         """Tensors by name -> one flat tensor of :attr:`data`'s dtype and device."""
         return torch.cat([torch.as_tensor(tensors[n]).reshape(-1) for n in self.names]).to(self.data)
-
-
-@torch.no_grad()
-def init_like_flax(model: torch.nn.Module, seed: int):
-    """Fresh weights with the initializers the JAX package's flax modules
-    declare, from a ``torch.Generator`` seeded with ``seed``: lecun-normal
-    kernels (normal truncated to two standard deviations, variance
-    1/fan_in), zero biases, unit norm scales, ``cls_token`` zero,
-    ``pos_embed`` N(0, 0.02^2), BatchNorm statistics mean 0 and var 1."""
-    dev = next(model.parameters()).device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "cls_token":
-            p.zero_()
-        elif leaf == "pos_embed":
-            p.normal_(0.0, 0.02, generator=gen)
-        elif p.ndim >= 2:  # fan_in of a torch kernel is its numel over the output channels
-            std = math.sqrt(1.0 / p[0].numel()) / _TRUNC_STD
-            torch.nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
-        else:
-            p.fill_(1.0 if leaf == "weight" else 0.0)
-    for name, b in model.named_buffers():
-        if name.endswith("running_mean"):
-            b.zero_()
-        elif name.endswith("running_var"):
-            b.fill_(1.0)
 
 
 def _count(dev) -> torch.Tensor:
