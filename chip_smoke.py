@@ -205,6 +205,7 @@ from pathlib import Path
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 KERNEL_SOURCES = {"decode": "unmore_tpu_torch/csrc/decode.cu"}
+DECODE_LAUNCHES = "ops.decode.launches"  # the port's tracer counts the decode kernel's launches here
 # host code, not kernels: the paste-back of scoring and of the detector's masks, the label
 # synthesis and image resizes, the COCO evaluator's mask IoU and matching, flax's seeded
 # init on the CPU
@@ -541,13 +542,12 @@ def phase_main_path(device, kernel_counters):
 
     engine._decode = capture
     torch.cuda.reset_peak_memory_stats()
-    for counted in kernel_counters.values():
-        counted.launches = 0
+    start = launch_counts(kernel_counters)
     t0 = time.perf_counter()
     results = engine.discover_batch(images)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    launches = launch_counts(kernel_counters, since=start)
     peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
         if n == 0:
@@ -1153,16 +1153,16 @@ def synced_stages(device, times, rounds):
     run inside it to ``rounds``."""
     import contextlib
 
-    from unmore_tpu_torch.ops.nms import nms_mask
+    from unmore_tpu_torch.utils import tracing
 
     @contextlib.contextmanager
     def stage(name):
         sync(device)
-        t0, r0 = time.perf_counter(), nms_mask.rounds
+        t0, r0 = time.perf_counter(), tracing.counter("ops.nms.rounds")
         yield
         sync(device)
         times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-        rounds[name] = rounds.get(name, 0) + nms_mask.rounds - r0
+        rounds[name] = rounds.get(name, 0) + tracing.counter("ops.nms.rounds") - r0
 
     return stage
 
@@ -2007,12 +2007,11 @@ def hybrid_discovery(device, trainer, obj_path, kernel_counters):
         check_boxes(images, results, "dpt_hybrid discovery")
         return results, cuts, wall, peak_bytes(device)
 
-    for counted in kernel_counters.values():
-        counted.launches = 0
+    start = launch_counts(kernel_counters)
     on_trained = group()
     init_random_variables(objectness, seed=0)
     results, cuts, wall, peak = group(sticky_convergence=False)
-    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    launches = launch_counts(kernel_counters, since=start)
     cfg = ReasoningConfig(**cuts)
     rounds = [r["stats"]["boundary_rounds"] for r in results]
     if rounds != [cfg.n_round] * len(results):
@@ -2557,9 +2556,9 @@ def dist_rank_stage2(device, center_thres):
     import torch
 
     from unmore_tpu_torch.cli import object_reasoning, object_scoring
-    from unmore_tpu_torch.ops.decode import fused_center_decode
     from unmore_tpu_torch.ops.fields import center_singularity_scores
     from unmore_tpu_torch.reasoning import engine
+    from unmore_tpu_torch.utils import tracing
 
     calls, real = [], engine.fused_center_decode
 
@@ -2570,13 +2569,13 @@ def dist_rank_stage2(device, center_thres):
 
     engine.fused_center_decode = record
     disc, score = dist_stage2_argv("two", center_thres, False, device)
-    fused_center_decode.launches = 0
+    start = tracing.counter(DECODE_LAUNCHES)
     try:
         with stage2_in(DIST_FOLDER):
             t0 = time.perf_counter()
             object_reasoning.main(disc)
             discovery_s = time.perf_counter() - t0
-            launches = fused_center_decode.launches
+            launches = tracing.counter(DECODE_LAUNCHES) - start
             t0 = time.perf_counter()
             object_scoring.main(score)
             scoring_s = time.perf_counter() - t0
@@ -2788,10 +2787,10 @@ def chain_rerun(work, kernel_counters):
     chain = chain_knobs(work)
     end = min(chain.a.seg, chain.a.disc_scenes)
     t0 = time.perf_counter()
-    with record_decode(kernel_counters) as calls, contextlib.chdir(work):
+    with record_decode(kernel_counters) as (calls, start), contextlib.chdir(work):
         object_reasoning.main(chain.discovery_argv(0, end) + ["--run_name", "rerun"])
     seconds = time.perf_counter() - t0
-    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    launches = launch_counts(kernel_counters, since=start)
     errors = decode_errors(calls)  # outside the counted run
     n_calls = len(calls)
     del calls[:]
@@ -2802,10 +2801,19 @@ def chain_rerun(work, kernel_counters):
             "images_with_boxes": len(ours), "scenes_with_boxes": sorted(ours), "seconds": seconds}
 
 
+def launch_counts(kernel_counters, since=None):
+    """Each kernel's launches as the port's tracer counts them
+    (``kernel_counters``: kernel name -> its counter), less ``since``."""
+    from unmore_tpu_torch.utils import tracing
+
+    now = {name: tracing.counter(c) for name, c in kernel_counters.items()}
+    return now if since is None else {name: n - since[name] for name, n in now.items()}
+
+
 def record_decode(kernel_counters):
     """A context in which every decode call of an engine built inside it is
-    kept (inputs and outputs), with the kernels' counts set to 0 at its start:
-    yields the list of calls."""
+    kept (inputs and outputs): yields the list of calls and the kernels'
+    counts at its start."""
     from unmore_tpu_torch.reasoning import engine
 
     calls, real = [], engine.fused_center_decode
@@ -2818,10 +2826,8 @@ def record_decode(kernel_counters):
     @contextlib.contextmanager
     def recording():
         engine.fused_center_decode = record
-        for counted in kernel_counters.values():
-            counted.launches = 0
         try:
-            yield calls
+            yield calls, launch_counts(kernel_counters)
         finally:
             engine.fused_center_decode = real
 
@@ -2856,10 +2862,10 @@ def ab_rerun(work, kernel_counters):
     chain = chain_knobs(work)
     out = work / "sticky_ab_rerun.json"
     t0 = time.perf_counter()
-    with record_decode(kernel_counters) as calls:
+    with record_decode(kernel_counters) as (calls, start):
         sticky_ab.main(chain.ab_argv() + ["--modes", "reference_rounds", "--out", str(out)])
     seconds = time.perf_counter() - t0
-    launches = {name: counted.launches for name, counted in kernel_counters.items()}
+    launches = launch_counts(kernel_counters, since=start)
     errors = decode_errors(calls)
     n_calls = len(calls)
     del calls[:]
@@ -3167,7 +3173,6 @@ def main():
         fail("no CUDA device: chip_smoke.py runs the port on an NVIDIA card only")
     try:
         from unmore_tpu_torch.ops import cuda_build
-        from unmore_tpu_torch.ops.decode import fused_center_decode
     except ImportError as exc:
         fail(f"the port is not importable from here ({exc}); run from the repository root")
     device = torch.device("cuda", 0)
@@ -3188,7 +3193,7 @@ def main():
                     for k, v in log.items()}})
 
     kernel_rows = phase_kernel(device)
-    counters = {"fused_center_decode": fused_center_decode}
+    counters = {"fused_center_decode": DECODE_LAUNCHES}
     main_path = phase_main_path(device, counters)
     launches, chunk_row = main_path["launches"], main_path["chunk_row"]
     phase_scoring(device, main_path)

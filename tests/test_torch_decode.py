@@ -18,6 +18,7 @@ import torch
 
 from unmore_tpu_torch.ops import decode, fields
 from unmore_tpu_torch.ops.fields import center_singularity_scores
+from unmore_tpu_torch.utils import tracing
 
 
 def decode_inputs(B, S, seed):
@@ -68,10 +69,10 @@ def test_cpu_call_never_touches_the_library_loader(monkeypatch):
 
     monkeypatch.setattr(decode, "_load_library", refuse)
     monkeypatch.setattr(decode, "load_library", refuse)
-    before = decode.fused_center_decode.launches
+    before = tracing.counter("ops.decode.launches")
     sdf, center = decode_inputs(2, 32, 2)
     decode.fused_center_decode(torch.from_numpy(sdf), torch.from_numpy(center))
-    assert decode.fused_center_decode.launches == before
+    assert tracing.counter("ops.decode.launches") == before
 
 
 @pytest.mark.parametrize(
@@ -181,10 +182,10 @@ def test_kernel_matches_plain_on_the_card(case):
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     sdf, center, kw = card_inputs(case)
     s, c = torch.from_numpy(sdf).cuda(), torch.from_numpy(center).cuda()
-    before = decode.fused_center_decode.launches
+    before = tracing.counter("ops.decode.launches")
     got = decode.fused_center_decode(s, c, **kw)
     torch.cuda.synchronize()
-    assert decode.fused_center_decode.launches == before + 1
+    assert tracing.counter("ops.decode.launches") == before + 1
     want = center_singularity_scores(
         s, c, border=kw.get("border", 10), erode_kernel=kw.get("erode_k", 9),
         erode_rounds=kw.get("erode_rounds", 3), anti_kernel=kw.get("anti_k", 5),

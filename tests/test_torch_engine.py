@@ -24,6 +24,16 @@ from tests.test_reasoning_engine import make_world
 BLUR_K, BLUR_ROUNDS = 9, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: under the suite's parallel workers, torch's thread
+    pool contends with theirs for the cores and runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _box_sums(y, axis, pad):
     """Sum of BLUR_K zero-padded shifts along ``axis`` (-1 or -2), in order."""
     h = BLUR_K // 2

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
+import torch
 
 from unmore_tpu import native
 from unmore_tpu.cli import common as jax_common
@@ -54,6 +55,16 @@ from tests.test_torch_models import HIGH, TINY, TINY_DPT, _perturb, flax_objectn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBSCORES = ("existence_score", "center_score", "boundary_score", "area_score")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread: under the suite's parallel workers, torch's thread
+    pool contends with theirs for the cores and runs many times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_same_annotations(got, want, rtol):

@@ -16,13 +16,11 @@ the JAX package's seeded flax init.
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import hashlib
 import json
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -106,32 +104,6 @@ def make_apply_fns(objectness: torch.nn.Module, classifier: torch.nn.Module):
         return classifier(crops)[:, 0]
 
     return objectness_fn, classifier_fn
-
-
-class StageTimer:
-    """Accumulates wall-clock seconds per named stage; dumps JSON."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] = self.totals.get(name, 0.0) + time.perf_counter() - t0
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def dump(self, path: str):
-        summary = {
-            name: {"total_s": round(total, 4), "count": self.counts[name],
-                   "mean_s": round(total / max(self.counts[name], 1), 4)}
-            for name, total in self.totals.items()
-        }
-        with open(path, "w") as f:
-            json.dump(summary, f, indent=2)
 
 
 # the stage-2 ranks meet once, at the gather after their shards, and one may

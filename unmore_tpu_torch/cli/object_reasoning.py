@@ -116,13 +116,14 @@ def main(argv=None):
         sys.exit(supervisor.run_supervised(__spec__.name, raw, args.max_restarts, args.hang_timeout_min))
 
     from unmore_tpu_torch.cli.common import (
-        STAGE2_GATHER_TIMEOUT, NpEncoder, StageTimer, build_classifier, build_objectness, init_random_variables,
+        STAGE2_GATHER_TIMEOUT, NpEncoder, build_classifier, build_objectness, init_random_variables,
         load_classifier_weights, load_objectness_weights, load_partial_jsonl, make_apply_fns,
         partial_fingerprint, setup_device,
     )
     from unmore_tpu_torch.data.coco import COCOImages
     from unmore_tpu_torch.parallel import distributed as dist
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
+    from unmore_tpu_torch.utils import tracing
 
     # the ranks' group is made at the gather after their shards, so that a
     # restarted rank still joins it
@@ -185,38 +186,45 @@ def main(argv=None):
         print(f"resuming: {len(done_ids)} images already discovered in {part_path}; skipping them", flush=True)
         indices = np.asarray([i for i in indices if int(dataset.image_id(int(i))) not in done_ids], dtype=np.int64)
 
-    timer = StageTimer()
-    t0 = time.time()
-    B = engine.image_slots
-    for base in range(0, len(indices), B):
-        with timer.stage("load"):
-            group = [dataset.get(int(i), dtype=np.uint8) for i in indices[base : base + B]]
-        with timer.stage("discover"):
-            outs = engine.discover_batch([g[0] for g in group])
-        part_lines = []
-        for (_, image_id), out in zip(group, outs):
-            boxes = np.asarray(out["boxes"]).tolist() if len(out["boxes"]) else []
-            if boxes:
-                results[int(image_id)] = boxes
-            part_lines.append(json.dumps({"image_id": int(image_id), "boxes": boxes}, cls=NpEncoder))
-            print(
-                f"[{base + len(group)}/{len(indices)}] image {image_id}: {out['stats']} "
-                f"({(base + len(group)) / (time.time() - t0):.3f} img/s)",
-                flush=True,
-            )
-        with open(part_path, "a") as f:
-            f.write("".join(line + "\n" for line in part_lines))
+    # spans and counters on (utils/tracing.py): stage_timings.json gets the
+    # engine's phases on the device's clock beside load and discover
+    tracing.enable()
+    try:
+        t0 = time.time()
+        B = engine.image_slots
+        for base in range(0, len(indices), B):
+            with tracing.span("load"):
+                group = [dataset.get(int(i), dtype=np.uint8) for i in indices[base : base + B]]
+            with tracing.span("discover"):
+                outs = engine.discover_batch([g[0] for g in group])
+            part_lines = []
+            for (_, image_id), out in zip(group, outs):
+                boxes = np.asarray(out["boxes"]).tolist() if len(out["boxes"]) else []
+                if boxes:
+                    results[int(image_id)] = boxes
+                part_lines.append(json.dumps({"image_id": int(image_id), "boxes": boxes}, cls=NpEncoder))
+                # the log line keeps the JAX package's format (scripts/parse_discovery_stats.py)
+                log_stats = {k: v for k, v in out["stats"].items() if k != "trace"}
+                print(
+                    f"[{base + len(group)}/{len(indices)}] image {image_id}: {log_stats} "
+                    f"({(base + len(group)) / (time.time() - t0):.3f} img/s)",
+                    flush=True,
+                )
+            with open(part_path, "a") as f:
+                f.write("".join(line + "\n" for line in part_lines))
 
-    # rank 0 writes the one contract JSON, filled in rank order
-    merged = {}
-    for part in dist.all_gather_objects(results):
-        merged.update(part)
-    if dist.is_main():
-        out_path = os.path.join(result_folder, "discovery_results.json")
-        with open(out_path, "w") as f:
-            json.dump(merged, f, indent=2, cls=NpEncoder)
-        timer.dump(os.path.join(result_folder, "stage_timings.json"))
-        print("wrote", out_path)
+        # rank 0 writes the one contract JSON, filled in rank order
+        merged = {}
+        for part in dist.all_gather_objects(results):
+            merged.update(part)
+        if dist.is_main():
+            out_path = os.path.join(result_folder, "discovery_results.json")
+            with open(out_path, "w") as f:
+                json.dump(merged, f, indent=2, cls=NpEncoder)
+            tracing.dump(os.path.join(result_folder, "stage_timings.json"))
+            print("wrote", out_path)
+    finally:
+        tracing.disable()
 
 
 if __name__ == "__main__":

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from unmore_tpu_torch.utils import tracing
+
 BIG = 2**30
 
 
@@ -41,7 +43,7 @@ def label_components(masks: torch.Tensor, max_iters: int = 1024) -> torch.Tensor
         flat = prop.reshape(B, h * w)
         hop = torch.gather(flat, 1, flat.clamp(0, h * w - 1).long()).reshape(B, h, w)
         new = torch.minimum(prop, torch.where(prop < BIG, hop, big))
-        changed = bool((new != labels).any())
+        changed = tracing.read("cc.changed", bool, (new != labels).any())
         labels = new
         if not changed:
             break

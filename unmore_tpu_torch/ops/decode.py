@@ -25,6 +25,7 @@ import torch
 
 from unmore_tpu_torch.ops.cuda_build import load_library
 from unmore_tpu_torch.ops.fields import _anti_center_kernel, center_singularity_scores
+from unmore_tpu_torch.utils import tracing
 
 MAX_SIZE = 256  # largest crop side the kernel takes
 MAX_ANTI_K = 21  # the taps travel by value among the kernel's parameters (< 4 KB)
@@ -125,8 +126,8 @@ def fused_center_decode(
     sdf_maps [B, S, S] f32; center_fields [B, S, S, 2] f32 (dy, dx).
     Returns (max_scores [B] f32, argmax_yx [B, 2] int32, union [B, S, S]
     int32). CPU tensors run the plain version; CUDA tensors launch the
-    kernel's three passes on the current stream and count one call in
-    ``fused_center_decode.launches``.
+    kernel's three passes on the current stream and count one call in the
+    tracer's ``ops.decode.launches``.
     """
     _check(sdf_maps, center_fields, erode_k, anti_k)
     if sdf_maps.device.type == "cpu":
@@ -153,8 +154,5 @@ def fused_center_decode(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, err, "launch")
-    fused_center_decode.launches += 1
+    tracing.count("ops.decode.launches")
     return max_scores, argmax_yx, union
-
-
-fused_center_decode.launches = 0

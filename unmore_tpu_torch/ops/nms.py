@@ -11,13 +11,15 @@ are never kept and never suppress.
 Inputs with a leading axis ([L, N, 4]) run L independent NMS problems in
 the same rounds, one threat matrix per row, until every row is decided:
 each round costs one host sync, so the detector's levels and images share
-them. ``nms_mask.rounds`` counts the rounds run, as the kernels count
-their launches.
+them. The tracer's counter ``ops.nms.rounds`` counts the rounds run
+(:mod:`unmore_tpu_torch.utils.tracing`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from unmore_tpu_torch.utils import tracing
 
 
 def pairwise_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
@@ -58,8 +60,8 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     suppressed = torch.zeros_like(kept)
     while True:
         undecided = sorted_valid & ~kept & ~suppressed
-        nms_mask.rounds += 1
-        if not bool(undecided.any()):
+        tracing.count("ops.nms.rounds")
+        if not tracing.read("nms.undecided", bool, undecided.any()):
             break
         by_kept = (threat & kept[..., None]).any(dim=1)
         live_threat = (threat & ~suppressed[..., None]).any(dim=1)
@@ -68,6 +70,3 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     out = torch.zeros((L, n), dtype=torch.bool, device=dev)
     out.scatter_(1, order, kept)
     return out
-
-
-nms_mask.rounds = 0

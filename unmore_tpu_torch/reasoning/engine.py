@@ -18,6 +18,10 @@ The same program as the JAX engine, run eagerly on one device:
   only; converged boxes freeze (``sticky_convergence``) unless the
   reference-rounds mode re-predicts them every round;
 * a per-image NMS by coordinate offset picks the final boxes.
+* the tracer (:mod:`unmore_tpu_torch.utils.tracing`) spans the group
+  (``engine.discover_batch``), its phases, each boundary round, each model
+  call and each device-to-host read it makes (``sync.<site>``, counted in
+  ``host_syncs``).
 
 Results follow the JAX engine's compaction order, because the final NMS
 (all scores equal) breaks ties in that order. Over several cards the
@@ -42,6 +46,7 @@ from unmore_tpu_torch.ops.fields import center_singularity_scores
 from unmore_tpu_torch.ops.image import crop_and_resize, image_gradients
 from unmore_tpu_torch.ops.nms import nms_mask
 from unmore_tpu_torch.reasoning.proposals import seed_proposals
+from unmore_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +157,10 @@ def _segment_count(mask, idx, num_segments: int):
     return out.index_add_(0, idx.long(), mask.long())
 
 
+def _to_numpy(t):
+    return t.cpu().numpy()
+
+
 def _live_prefix_map(chunk_fn, boxes, idx, n_live: int, chunk: int, tail: int, out_init: dict):
     """Run chunk_fn over the live prefix in two chunk tiers.
 
@@ -216,12 +225,16 @@ class ObjectDiscoveryEngine:
         boxes, valid, (idx,), n_live, _ = _compact(boxes, valid, K, extras=(idx,))
 
         def chunk_fn(bc, ic):
-            return {"s": self._classifier(self._crops(canvases, bc, ic)).reshape(-1)}
+            crops = self._crops(canvases, bc, ic)
+            with tracing.span("models.classifier"):
+                scores = self._classifier(crops)
+            return {"s": scores.reshape(-1)}
 
         # the cheap classifier's remainder runs in crop_chunk-sized calls
         tail = min(c.crop_chunk, c.exist_tile) if c.exist_tile > c.crop_chunk else c.tail
         out = {"s": torch.zeros(K, dtype=torch.float32, device=boxes.device)}
-        scores = _live_prefix_map(chunk_fn, boxes, idx, int(n_live), c.exist_tile, tail, out)["s"]
+        n_live = tracing.read("existence.n_live", int, n_live)
+        scores = _live_prefix_map(chunk_fn, boxes, idx, n_live, c.exist_tile, tail, out)["s"]
         return boxes, idx, valid, torch.where(valid, scores, torch.zeros((), device=boxes.device))
 
     # --------------------------------------------------------------- center
@@ -239,7 +252,9 @@ class ObjectDiscoveryEngine:
         idx, extras = ex[0], ex[1:]
 
         def chunk_fn(bc, ic):
-            out = self._objectness(self._crops(canvases, bc, ic), True)
+            crops = self._crops(canvases, bc, ic)
+            with tracing.span("models.objectness"):
+                out = self._objectness(crops, True)
             sing, argmax_yx, union = self._decode(
                 out["sdf_maps"].float().contiguous(), out["center_fields"].float().contiguous()
             )
@@ -262,7 +277,8 @@ class ObjectDiscoveryEngine:
                 cc_valid=torch.zeros(K, C, dtype=torch.bool, device=dev),
                 cc_counts=torch.zeros(K, dtype=torch.int32, device=dev),
             )
-        outs = _live_prefix_map(chunk_fn, boxes, idx, int(n_live), c.crop_chunk, c.tail, out_init)
+        n_live = tracing.read("center.n_live", int, n_live)
+        outs = _live_prefix_map(chunk_fn, boxes, idx, n_live, c.crop_chunk, c.tail, out_init)
 
         fail = valid & (outs["sing"] > c.center_score_max_thres)
         passed = valid & ~fail
@@ -327,7 +343,10 @@ class ObjectDiscoveryEngine:
     def _boundary_chunk_stats(self, canvases, bc, ic):
         """Per-chunk SDF stats: max value + edge deltas, reduced to per-box
         scalars inside the chunk."""
-        sdf = self._objectness(self._crops(canvases, bc, ic), False)["sdf_maps"].float()
+        crops = self._crops(canvases, bc, ic)
+        with tracing.span("models.objectness"):
+            out = self._objectness(crops, False)
+        sdf = out["sdf_maps"].float()
         max_sdf = sdf.amax(dim=(1, 2))
         dy, dx = image_gradients(sdf)
         grad_norm = torch.sqrt(dy**2 + dx**2)[:, :-1, :-1]
@@ -362,65 +381,66 @@ class ObjectDiscoveryEngine:
         rnd, trace = 0, []
         while rnd < c.n_round:
             live = (labels == 0) if c.sticky_convergence else (labels >= 0)
-            if not bool(live.any()):
+            if not tracing.read("boundary.any_live", bool, live.any()):
                 break
-            if not c.sticky_convergence:
-                # reference semantics: every surviving label resets to 0
-                labels = torch.where(labels == 1, 0, labels).to(torch.int8)
-            x1, y1, x2, y2 = boxes.unbind(1)
-            # the area filter applies to every surviving proposal each round
-            area = (x2 - x1) * (y2 - y1)
-            labels = torch.where((labels >= 0) & (area <= c.proposal_area_thres), -1, labels).to(torch.int8)
+            with tracing.span("engine.boundary.round"):
+                if not c.sticky_convergence:
+                    # reference semantics: every surviving label resets to 0
+                    labels = torch.where(labels == 1, 0, labels).to(torch.int8)
+                x1, y1, x2, y2 = boxes.unbind(1)
+                # the area filter applies to every surviving proposal each round
+                area = (x2 - x1) * (y2 - y1)
+                labels = torch.where((labels >= 0) & (area <= c.proposal_area_thres), -1, labels).to(torch.int8)
 
-            # live-prefix compaction: only active boxes cost model FLOPs
-            active = labels == 0
-            order = torch.argsort((~active).to(torch.int32), stable=True)
-            boxes, idx, labels = boxes[order], idx[order], labels[order]
-            n_active = int(active.sum())
-            trace.append(n_active)
-            x1, y1, x2, y2 = boxes.unbind(1)
-            active = labels == 0
-            h = hw[idx, 0]
-            w = hw[idx, 1]
+                # live-prefix compaction: only active boxes cost model FLOPs
+                active = labels == 0
+                order = torch.argsort((~active).to(torch.int32), stable=True)
+                boxes, idx, labels = boxes[order], idx[order], labels[order]
+                n_active = tracing.read("boundary.n_active", int, active.sum())
+                trace.append(n_active)
+                x1, y1, x2, y2 = boxes.unbind(1)
+                active = labels == 0
+                h = hw[idx, 0]
+                w = hw[idx, 1]
 
-            out_init = {k: torch.zeros(K, dtype=torch.float32, device=dev)
-                        for k in ("max_sdf", "d_x1", "d_y1", "d_x2", "d_y2")}
-            stats = _live_prefix_map(
-                lambda bc, ic: self._boundary_chunk_stats(canvases, bc, ic),
-                boxes, idx, n_active, c.crop_chunk, c.tail, out_init,
-            )
-            labels = torch.where(active & (stats["max_sdf"] <= c.max_sdf_thres), -1, labels).to(torch.int8)
-            active = labels == 0
+                out_init = {k: torch.zeros(K, dtype=torch.float32, device=dev)
+                            for k in ("max_sdf", "d_x1", "d_y1", "d_x2", "d_y2")}
+                stats = _live_prefix_map(
+                    lambda bc, ic: self._boundary_chunk_stats(canvases, bc, ic),
+                    boxes, idx, n_active, c.crop_chunk, c.tail, out_init,
+                )
+                labels = torch.where(active & (stats["max_sdf"] <= c.max_sdf_thres), -1, labels).to(torch.int8)
+                active = labels == 0
 
-            on_edge = torch.stack(
-                [torch.floor(x1) == 0, torch.floor(y1) == 0, torch.ceil(x2) == w, torch.ceil(y2) == h], dim=1
-            )
-            signed = torch.stack([-stats["d_x1"], -stats["d_y1"], stats["d_x2"], stats["d_y2"]], dim=1)
-            signed = torch.where((signed > 0) & on_edge, zero, signed)
-            max_exp = signed.amax(dim=1)
-            max_shr = signed.amin(dim=1)
-            converged = (max_exp <= 0) & (max_shr >= -c.max_shrink_threshold)
-            labels = torch.where(active & converged, 1, labels).to(torch.int8)
+                on_edge = torch.stack(
+                    [torch.floor(x1) == 0, torch.floor(y1) == 0, torch.ceil(x2) == w, torch.ceil(y2) == h], dim=1
+                )
+                signed = torch.stack([-stats["d_x1"], -stats["d_y1"], stats["d_x2"], stats["d_y2"]], dim=1)
+                signed = torch.where((signed > 0) & on_edge, zero, signed)
+                max_exp = signed.amax(dim=1)
+                max_shr = signed.amin(dim=1)
+                converged = (max_exp <= 0) & (max_shr >= -c.max_shrink_threshold)
+                labels = torch.where(active & converged, 1, labels).to(torch.int8)
 
-            # overshoot by delta_ratio
-            d_x1 = stats["d_x1"] - stats["d_x1"].abs() * c.delta_ratio
-            d_y1 = stats["d_y1"] - stats["d_y1"].abs() * c.delta_ratio
-            d_x2 = stats["d_x2"] + stats["d_x2"].abs() * c.delta_ratio
-            d_y2 = stats["d_y2"] + stats["d_y2"].abs() * c.delta_ratio
+                # overshoot by delta_ratio
+                d_x1 = stats["d_x1"] - stats["d_x1"].abs() * c.delta_ratio
+                d_y1 = stats["d_y1"] - stats["d_y1"].abs() * c.delta_ratio
+                d_x2 = stats["d_x2"] + stats["d_x2"].abs() * c.delta_ratio
+                d_y2 = stats["d_y2"] + stats["d_y2"].abs() * c.delta_ratio
 
-            still_active = labels == 0
-            xr = (x2 - x1) / S
-            yr = (y2 - y1) / S
-            new = torch.stack(
-                [
-                    torch.minimum((x1 + d_x1 * xr).clamp(min=0.0), w),
-                    torch.minimum((y1 + d_y1 * yr).clamp(min=0.0), h),
-                    torch.minimum((x2 + d_x2 * xr).clamp(min=0.0), w),
-                    torch.minimum((y2 + d_y2 * yr).clamp(min=0.0), h),
-                ],
-                dim=1,
-            )
-            boxes = torch.where(still_active[:, None], new, boxes)
+                still_active = labels == 0
+                xr = (x2 - x1) / S
+                yr = (y2 - y1) / S
+                new = torch.stack(
+                    [
+                        torch.minimum((x1 + d_x1 * xr).clamp(min=0.0), w),
+                        torch.minimum((y1 + d_y1 * yr).clamp(min=0.0), h),
+                        torch.minimum((x2 + d_x2 * xr).clamp(min=0.0), w),
+                        torch.minimum((y2 + d_y2 * yr).clamp(min=0.0), h),
+                    ],
+                    dim=1,
+                )
+                boxes = torch.where(still_active[:, None], new, boxes)
             rnd += 1
         return boxes, idx, labels, rnd, trace
 
@@ -432,13 +452,15 @@ class ObjectDiscoveryEngine:
         c = self.cfg
         B = c.image_batch
 
-        boxes, idx, valid, scores = self._existence_phase(canvases, boxes, idx, valid)
+        with tracing.span("engine.existence"):
+            boxes, idx, valid, scores = self._existence_phase(canvases, boxes, idx, valid)
         valid = valid & (scores >= c.class_score_thres)
         n_exist = _segment_count(valid, idx, B)
         n_center_in = valid.sum()
 
         # existence scores ride along so the boundary-lattice shed is score-ranked
-        center_out = self._center_phase(canvases, hw, boxes, idx, valid, c.analyze_cc, extras=(scores,))
+        with tracing.span("engine.center"):
+            center_out = self._center_phase(canvases, hw, boxes, idx, valid, c.analyze_cc, extras=(scores,))
         boxes, idx, passed = center_out["boxes"], center_out["idx"], center_out["passed"]
         (scores,) = center_out["extras"]
         split_boxes = center_out["split_boxes"]
@@ -461,14 +483,16 @@ class ObjectDiscoveryEngine:
         )
 
         # re-check split proposals: existence then singularity
-        split_boxes, split_idx, split_valid, s_scores = self._existence_phase(
-            canvases, split_boxes, split_idx, split_valid
-        )
+        with tracing.span("engine.recheck_existence"):
+            split_boxes, split_idx, split_valid, s_scores = self._existence_phase(
+                canvases, split_boxes, split_idx, split_valid
+            )
         split_valid = split_valid & (s_scores >= c.class_score_thres)
         n_recheck = split_valid.sum()
-        recheck = self._center_phase(
-            canvases, hw, split_boxes, split_idx, split_valid, analyze_cc=False, extras=(s_scores,)
-        )
+        with tracing.span("engine.recheck_center"):
+            recheck = self._center_phase(
+                canvases, hw, split_boxes, split_idx, split_valid, analyze_cc=False, extras=(s_scores,)
+            )
         split_boxes, split_idx, split_passed = recheck["boxes"], recheck["idx"], recheck["passed"]
         (s_scores,) = recheck["extras"]
 
@@ -502,8 +526,20 @@ class ObjectDiscoveryEngine:
         images: list of [H_i, W_i, 3] float32 arrays in [0, 1] or uint8
         arrays (the wire format: canvases travel as bytes and are decoded
         on the device). Returns one dict per image: ``boxes`` (after NMS),
-        ``converged_boxes`` and ``stats``.
+        ``converged_boxes`` and ``stats``. While the tracer records
+        (:mod:`unmore_tpu_torch.utils.tracing`: after ``enable()``, or under
+        a running torch profiler) every image's ``stats`` also holds
+        ``trace``, the group's span totals and counter deltas; otherwise
+        ``stats`` holds the JAX engine's keys alone.
         """
+        with tracing.group("engine.discover_batch", self.device) as trace:
+            results = self._discover_batch(images)
+        if trace:
+            for r in results:
+                r["stats"]["trace"] = trace
+        return results
+
+    def _discover_batch(self, images: list) -> list:
         c = self.cfg
         B = c.image_batch
         if len(images) > B:
@@ -541,20 +577,22 @@ class ObjectDiscoveryEngine:
             canv, hw_t, torch.from_numpy(boxes_np).to(dev), torch.from_numpy(idx_np).to(dev),
             torch.from_numpy(valid_np).to(dev),
         )
-        final_boxes, final_idx, labels, rounds, trace = self._boundary_phase(
-            canv, hw_t, act_boxes, act_idx, act_valid
-        )
-        keep = labels == 1
-        # NMS (scores all 1 -> index-order tie-break)
-        nms_keep = self._batched_nms(final_boxes, torch.ones(final_boxes.shape[0], device=dev), keep, final_idx)
-        n_converged = _segment_count(keep, final_idx, B).tolist()
-        n_final = _segment_count(nms_keep, final_idx, B).tolist()
-        n_exist = stats["n_exist"].tolist()
-        scalars = {k: int(v) for k, v in stats.items() if k != "n_exist"}
-        fb = final_boxes.cpu().numpy()
-        fidx = final_idx.cpu().numpy()
-        keep_np = keep.cpu().numpy()
-        nms_np = nms_keep.cpu().numpy()
+        with tracing.span("engine.boundary"):
+            final_boxes, final_idx, labels, rounds, trace = self._boundary_phase(
+                canv, hw_t, act_boxes, act_idx, act_valid
+            )
+        with tracing.span("engine.nms_readback"):
+            keep = labels == 1
+            # NMS (scores all 1 -> index-order tie-break)
+            nms_keep = self._batched_nms(final_boxes, torch.ones(final_boxes.shape[0], device=dev), keep, final_idx)
+            n_converged = tracing.read("readback.n_converged", torch.Tensor.tolist, _segment_count(keep, final_idx, B))
+            n_final = tracing.read("readback.n_final", torch.Tensor.tolist, _segment_count(nms_keep, final_idx, B))
+            n_exist = tracing.read("readback.n_exist", torch.Tensor.tolist, stats["n_exist"])
+            scalars = {k: tracing.read("readback." + k, int, v) for k, v in stats.items() if k != "n_exist"}
+            fb = tracing.read("readback.boxes", _to_numpy, final_boxes)
+            fidx = tracing.read("readback.idx", _to_numpy, final_idx)
+            keep_np = tracing.read("readback.converged", _to_numpy, keep)
+            nms_np = tracing.read("readback.kept", _to_numpy, nms_keep)
 
         results = []
         for g in range(len(images)):
