@@ -17,6 +17,10 @@ JAX package does.
 
 Public layout is NHWC as in the JAX package: images [B, H, W, 3] in [0, 1];
 center_fields [B, H, W, 2] (dy, dx) and sdf_maps [B, H, W], both f32.
+
+At inference on a card the forward replays a CUDA graph of itself for each
+input signature it has met before (:meth:`ObjectnessNet.forward`): a
+discovery round's small chunks then cost one launch instead of ~600.
 """
 
 from __future__ import annotations
@@ -105,6 +109,32 @@ def folded_head(head: nn.Sequential, feat: torch.Tensor) -> torch.Tensor:
     return head[4](out) if len(head) > 4 else out
 
 
+class _Graph:
+    """One captured forward: the static input it reads ([B, 3, H, W] in the
+    model's dtype, over NHWC storage as the eager cast leaves it), the graph,
+    and the static outputs it writes."""
+
+    def __init__(self, images: torch.Tensor, dtype: torch.dtype, pool, forward):
+        self.x = torch.empty(images.shape, dtype=dtype, device=images.device).permute(0, 3, 1, 2)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=pool):
+            self.out = forward(self.x)
+
+    def __call__(self, images: torch.Tensor) -> dict:
+        self.x.copy_(images.permute(0, 3, 1, 2))
+        self.graph.replay()
+        # fresh tensors, as the eager forward returns: the next replay writes
+        # the static outputs again
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def replayable(images: torch.Tensor) -> bool:
+    """Whether a forward on ``images`` may run as a CUDA graph: a CUDA input,
+    no gradient, no autocast, and no capture under way."""
+    return (images.is_cuda and not torch.is_grad_enabled() and not torch.is_autocast_enabled(images.device.type)
+            and not torch.cuda.is_current_stream_capturing())
+
+
 class ObjectnessNet(nn.Module):
     def __init__(self, backbone_type: str = "dpt_large", sdf_activation: str | None = "tanh",
                  use_bg_sdf: bool = True, features: int = 256, vit_config=None, hooks=None,
@@ -121,17 +151,69 @@ class ObjectnessNet(nn.Module):
         use_relu, final = sdf_head_layout(sdf_activation, use_bg_sdf)
         self.sdf_prediction_head = conv_head(features, 1, use_relu, final)
         self.sdf_head_is_linear = not use_relu
+        self._drop_graphs()
+
+    def _drop_graphs(self):
+        self._graphs = {}  # input signature -> _Graph, or None once met and not captured
+        self._graph_pool = None
+
+    def _apply(self, fn, recurse=True):
+        """Any ``.to``/``.cuda``/``.half`` may give the leaves new storage,
+        which a captured graph would not read: the graphs go."""
+        self._drop_graphs()
+        return super()._apply(fn, recurse)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._drop_graphs()  # ``assign=True`` gives the leaves new storage
+        return super().load_state_dict(*args, **kwargs)
 
     def forward(self, images: torch.Tensor, compute_center: bool = True) -> dict:
         """images [B, H, W, 3] in [0, 1]. Returns dict(sdf_maps [B, H, W]
         and, when ``compute_center``, center_fields [B, H, W, 2]); the
         center head does not run otherwise. Without a gradient, a linear SDF
         head runs as its fold (:func:`folded_head`), counted in
-        ``models.sdf_fold.calls``."""
+        ``models.sdf_fold.calls``.
+
+        Where :func:`replayable` holds, the first call with a signature
+        (``compute_center``, shape, dtype, device, inference mode) runs
+        eagerly, which warms cuDNN and cuBLAS and fills the resize weights'
+        cache; the second captures the forward as a CUDA graph
+        (``models.graph.captures``), and that call and every later one copy
+        the input into the graph's static input, replay it and return clones
+        of its outputs (a replay after the capturing call counts in
+        ``models.graph.replays``). A replay reads the parameters' storage as
+        it is then, so in-place updates reach it; it runs no module hooks.
+        No graph is captured while a torch profiler collects."""
         dtype = self.center_field_prediction_head[0].weight.dtype
-        feat = self.backbone(images.permute(0, 3, 1, 2).to(dtype))
-        if self.sdf_head_is_linear and not torch.is_grad_enabled():
+        fold = self.sdf_head_is_linear and not torch.is_grad_enabled()
+        if fold:
             tracing.count("models.sdf_fold.calls")
+        if replayable(images):
+            key = (compute_center, tuple(images.shape), images.dtype, images.device, torch.is_inference_mode_enabled())
+            graph = self._graphs.get(key)
+            if graph is not None:
+                tracing.count(tracing.GRAPH_REPLAYS)
+                return graph(images)
+            if key in self._graphs and not tracing.profiling():
+                graph = self._graphs[key] = self._capture(images, dtype, compute_center, fold)
+                return graph(images)
+            self._graphs[key] = None
+        return self._forward(images.permute(0, 3, 1, 2).to(dtype), compute_center, fold)
+
+    def _capture(self, images, dtype, compute_center: bool, fold: bool) -> _Graph:
+        if self._graph_pool is None:
+            # one pool for all the graphs: replays run one at a time on the
+            # caller's stream and each call clones its outputs before the next
+            # replay, so one graph's scratch may overwrite another's
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = _Graph(images, dtype, self._graph_pool, lambda x: self._forward(x, compute_center, fold))
+        tracing.count(tracing.GRAPH_CAPTURES)
+        return graph
+
+    def _forward(self, x: torch.Tensor, compute_center: bool, fold: bool) -> dict:
+        """The forward on x [B, 3, H, W] in the model's dtype."""
+        feat = self.backbone(x)
+        if fold:
             out = {"sdf_maps": folded_head(self.sdf_prediction_head, feat)[:, 0].float()}
         else:
             out = {"sdf_maps": self.sdf_prediction_head(feat)[:, 0].float()}

@@ -38,6 +38,10 @@ from collections import defaultdict
 import torch
 
 HOST_SYNCS = "host_syncs"
+# ObjectnessNet's CUDA graphs (``models/objectness.py``): forwards captured,
+# and calls that replayed a graph captured by an earlier call
+GRAPH_CAPTURES = "models.graph.captures"
+GRAPH_REPLAYS = "models.graph.replays"
 _NULL = contextlib.nullcontext()
 
 
@@ -128,7 +132,8 @@ def disable():
     _T.enabled = _T.recording = False
 
 
-def _profiling() -> bool:
+def profiling() -> bool:
+    """Whether a torch profiler collects now."""
     return torch.autograd.profiler._is_profiler_enabled
 
 
@@ -167,7 +172,7 @@ def group(name: str, device):
     per name) and ``counters`` (the group's counter deltas) once the group
     has ended; otherwise it stays empty."""
     out = {}
-    if not (_T.enabled or _profiling()):
+    if not (_T.enabled or profiling()):
         yield out
         return
     device = torch.device(device)
