@@ -22,11 +22,12 @@ phases, each printing one JSON line:
    ResNet-50 classifier, seeded random weights, bf16 (a smaller canvas and
    lattices, and thresholds set for random weights); launch counts are
    zeroed just before and read just after, and every kernel of the path
-   must have launched; a run with the plain decode, made first, must give
-   the same results; model FLOPs are counted per crop and per phase; both
-   bf16 models must hold their norms' leaves in float32. The
-   path's first center chunk is kept, and after the run the kernel is held
-   against its plain version and timed on it, as in phase 2;
+   must have launched; every decode launch is recorded and, after the run,
+   held against the plain version on its inputs (max abs error 0.0); the
+   boxes must be well formed; both bf16 models must hold their norms'
+   leaves in float32. The kernel is then held against its plain version and
+   timed on the path's first center chunk, as in phase 2. Stage 2's speed
+   and FLOPs are the benchmark's (``benchmark/``), not this phase's;
 4. scoring: ``ObjectScoringEngine.score_batch`` at the ``ScoringConfig``
    defaults with phase 3's models on four seeded uint8 images (phase 3's two
    and 480x640, 640x427) with 64 boxes each, phase 3's discovered boxes
@@ -34,7 +35,7 @@ phases, each printing one JSON line:
    chunks. Checks: the host library's tight boxes, areas and RLEs equal its
    plain version on the same union masks; the batched call equals four
    ``score_image`` calls; ``post_process.py`` takes the annotation JSON.
-   Timings, crops per second, model FLOPs and MFU, peak memory;
+   Timings, crops per second, peak memory;
 5. bf16: the full-width ObjectnessNet's f32 and bf16 forwards on 8 crops;
 6. train: stage 1 at the ``script.sh`` recipe (batch 20 at 128^2, bf16
    autocast over f32 weights, Adam 1e-4 on milestones 10000/20000). A seeded
@@ -98,12 +99,11 @@ phases, each printing one JSON line:
    calibrated on this model (30 steps leave the SDF negative everywhere: the
    group drops every proposal in the first boundary round), then the same
    group on phase 3's seeded random weights with the reference's rounds
-   (``sticky_convergence=False``), which must run all 50: wall, GFLOP a crop,
-   MFU, peak, live and executed crops; decode launches counted
-   from zero over both groups, each launch's output equal to the plain
-   version's on its inputs (max abs error 0.0); one scoring call at phase 4's
-   inputs (``device_s``, ``host_s``, MFU); a narrow f32 hybrid on the card
-   against the CPU (forward atol 1e-4, losses rtol 1e-5, gradient rel L2
+   (``sticky_convergence=False``), which must run all 50: wall and peak;
+   decode launches counted from zero over both groups, each launch's output
+   equal to the plain version's on its inputs (max abs error 0.0); one
+   scoring call at phase 4's inputs (``device_s``, ``host_s``); a narrow f32
+   hybrid on the card against the CPU (forward atol 1e-4, losses rtol 1e-5, gradient rel L2
    1e-3); bf16 against f32 at full width on one 256-crop chunk whose first 8
    crops are phase 5's, beside phase 5's DPT-Large figures;
 10. dist: data parallelism (``unmore_tpu_torch/parallel``). A one-rank NCCL
@@ -159,9 +159,7 @@ phases, each printing one JSON line:
    ``discovery_results.json``; the sticky A/B's ``reference_rounds`` leg run
    again in this process through the script's entry the same way, every
    decode launch exact, with the chain's boundary crops, annotations and
-   AP figures; DPT-Large's f32 forward on 8 crops with two crops a packed
-   ViT sequence (``--vit_pack 2``) within 1e-4 of the unpacked one, and both
-   bf16 forwards timed on a 256-crop chunk. Printed: each stage's wall
+   AP figures. Printed: each stage's wall
    (``scale_timings.txt``), discovery img/s, scoring's device / host split,
    bbox and segm AP and AP50 of the pseudo-labels, the CAD's img/s and its
    evaluation, and of the A/Bs each leg's AP and AP50, the boundary crops,
@@ -202,8 +200,8 @@ import sys
 import time
 from pathlib import Path
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+from benchmark.yardstick import H100_BF16_FLOPS, H100_HBM_BYTES_PER_S, decode_bytes
+
 KERNEL_SOURCES = {"decode": "unmore_tpu_torch/csrc/decode.cu"}
 DECODE_LAUNCHES = "ops.decode.launches"  # the port's tracer counts the decode kernel's launches here
 # host code, not kernels: the paste-back of scoring and of the detector's masks, the label
@@ -211,7 +209,6 @@ DECODE_LAUNCHES = "ops.decode.launches"  # the port's tracer counts the decode k
 # init on the CPU
 HOST_SOURCES = {"paste": "unmore_tpu_torch/csrc/paste.cpp", "labels": "unmore_tpu_torch/csrc/labels.cpp",
                 "cocoeval": "unmore_tpu_torch/csrc/cocoeval.cpp", "flax_init": "unmore_tpu_torch/csrc/flax_init.cpp"}
-H100_BF16_FLOPS = 989e12  # dense bf16, H100 SXM data sheet
 
 
 class DptLarge:
@@ -331,22 +328,6 @@ def dense_decode_inputs(B, S, seed, device):
     return sdf, center
 
 
-def decode_bound_ms(B, S, union, border=10, erode_k=9, erode_rounds=3, anti_k=5):
-    """Least time for the decode on an H100: the larger of the bytes it must
-    move (inputs read once, outputs written once) over HBM bandwidth and its
-    f32/compare operations over the f32 rate. The anti-center sum runs only
-    on eroded interior pixels of this run's union."""
-    from unmore_tpu_torch.ops.fields import batch_erode
-
-    n_bytes = B * S * S * (4 + 8 + 4) + B * (4 + 8)
-    eroded = batch_erode(union, erode_k, erode_rounds)
-    n_score = int(eroded[:, border : S - border, border : S - border].sum())
-    taps = anti_k * anti_k - 1
-    ops = B * S * S * (4 + 2 * erode_k * erode_rounds + 2) + n_score * (4 * taps + 1)
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), n_bytes
-
-
 def decode_row(name, sdf, center, require_scored=True):
     """Hold the kernel against its plain version on one input (union exact,
     scores to atol 2e-5, argmax equal where the score is > 1e-4) and time
@@ -370,14 +351,14 @@ def decode_row(name, sdf, center, require_scored=True):
     if not torch.equal(got[1][pos], want[1][pos]):
         fail(f"decode kernel argmax differs from the plain version on {name}")
     B, S, _ = sdf.shape
-    bound_ms, bound_by, n_bytes = decode_bound_ms(B, S, want[2])
+    n_bytes = decode_bytes(B, S)
     dev_ms, by_kernel = device_ms(lambda: fused_center_decode(sdf, center))
     return {
         "input": name, "shape": [B, S, S], "max_abs_err": err, "n_scored_crops": int(pos.sum()),
         "ms": time_ms(lambda: fused_center_decode(sdf, center)), "device_ms": dev_ms,
         "device_ms_by_kernel": by_kernel,
         "plain_ms": time_ms(lambda: center_singularity_scores(sdf, center)),
-        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": n_bytes,
+        "bound_ms": n_bytes / H100_HBM_BYTES_PER_S * 1e3, "bytes": n_bytes,
     }
 
 
@@ -455,53 +436,6 @@ def main_path_setup(device):
     return objectness, classifier, make_apply_fns(objectness, classifier), cuts, images
 
 
-def model_flops_per_crop(objectness, classifier, crop_size, device):
-    """Matmul and convolution FLOPs of one crop's forward, counted by
-    PyTorch's FlopCounterMode: (both heads, SDF head only, classifier)."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-
-    crop = torch.zeros(1, crop_size, crop_size, 3, device=device)
-    out = []
-    for fn in (lambda: objectness(crop), lambda: objectness(crop, compute_center=False), lambda: classifier(crop)):
-        counter = FlopCounterMode(display=False)
-        with torch.inference_mode(), counter:
-            fn()
-        out.append(counter.get_total_flops())
-    return out
-
-
-def executed_crops(n_live, chunk, tail):
-    """Crops a live-prefix map runs for ``n_live`` live rows: full chunks,
-    then tail chunks over the rest (dead rows in the last tail chunk run too)."""
-    full = (n_live // chunk) * chunk
-    return full + -(-(n_live - full) // tail) * tail
-
-
-def crop_counts(results, cfg):
-    """(live, executed) crops of each model phase of one discovery image group."""
-    s0 = results[0]["stats"]
-    exist_tail = min(cfg.crop_chunk, cfg.exist_tile) if cfg.exist_tile > cfg.crop_chunk else cfg.tail
-    n_seed = sum(r["stats"]["n_seed"] for r in results)
-    n_split_kept = min(s0["n_split"], cfg.max_splits * cfg.image_batch)
-    live = {"existence": n_seed + n_split_kept, "center": s0["n_center_in"],
-            "recheck_center": s0["n_recheck_center_in"], "boundary": sum(s0["boundary_active_trace"])}
-    executed = {
-        "existence": sum(executed_crops(n, cfg.exist_tile, exist_tail) for n in (n_seed, n_split_kept)),
-        "center": executed_crops(s0["n_center_in"], cfg.crop_chunk, cfg.tail),
-        "recheck_center": executed_crops(s0["n_recheck_center_in"], cfg.crop_chunk, cfg.tail),
-        "boundary": sum(executed_crops(n, cfg.crop_chunk, cfg.tail) for n in s0["boundary_active_trace"]),
-    }
-    return live, executed
-
-
-def group_flops(executed, both, sdf_only, cls):
-    """Model FLOPs of a group: the classifier on the existence crops, both
-    heads on the center crops, the SDF head on the boundary rounds."""
-    return (executed["existence"] * cls + (executed["center"] + executed["recheck_center"]) * both
-            + executed["boundary"] * sdf_only)
-
-
 def check_boxes(images, results, what):
     """Every image's boxes: finite [n, 4] inside the image."""
     import numpy as np
@@ -516,73 +450,37 @@ def check_boxes(images, results, what):
 
 
 def phase_main_path(device, kernel_counters):
-    import numpy as np
-    import torch
-
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
 
     objectness, classifier, fns, cuts, images = main_path_setup(device)
     cfg = ReasoningConfig(**cuts)
-
-    # the same run with the decode's plain version, first: it warms cuDNN and
-    # the allocator up, and the kernel run below must give the same result
-    plain = ObjectDiscoveryEngine(*fns, ReasoningConfig(**cuts, use_decode_kernel=False), device=device)
-    t0 = time.perf_counter()
-    reference = plain.discover_batch(images)
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-
     engine = ObjectDiscoveryEngine(*fns, cfg, device=device)
-    first_chunk = []  # the main path's first center chunk, timed on its own below
-
-    def capture(sdf, center, decode=engine._decode):
-        if not first_chunk:
-            first_chunk.extend((sdf.clone(), center.clone()))
-        return decode(sdf, center)
-
-    engine._decode = capture
-    torch.cuda.reset_peak_memory_stats()
-    start = launch_counts(kernel_counters)
-    t0 = time.perf_counter()
-    results = engine.discover_batch(images)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with record_decode(kernel_counters) as (calls, start):
+        results = engine.discover_batch(images)
     launches = launch_counts(kernel_counters, since=start)
-    peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was not launched on the main path")
-
     check_boxes(images, results, "discover_batch")
-    for res, ref in zip(results, reference):
-        if res["stats"] != ref["stats"] or not np.array_equal(res["boxes"], ref["boxes"]):
-            fail(f"kernel and plain decode disagree end to end: {res['stats']} vs {ref['stats']}")
-
-    live, executed = crop_counts(results, cfg)
-    both, sdf_only, cls = model_flops_per_crop(objectness, classifier, cfg.crop_size, device)
-    flops = group_flops(executed, both, sdf_only, cls)
+    errors = decode_errors(calls, "the main path")  # outside the counted run
+    if len(calls) != launches["fused_center_decode"] or any(e != 0.0 for e in errors):
+        fail(f"main-path decode launches against the plain version: {errors} ({len(calls)} recorded)")
     norms = {"objectness": norm_leaves(objectness), "classifier": norm_leaves(classifier)}
     if any(v["not_float32"] or not v["count"] for v in norms.values()):
         fail(f"bf16 main-path models with norm leaves not in float32: {norms}")
     emit({
         "phase": "main_path", "model": "dpt_large (vitl16_384, features 256, tanh bg-sdf) + resnet50, bf16",
-        "norm_leaves": norms, "wall_s_pr10": 14.218,
-        "cuts": cuts, "crop_size": cfg.crop_size, "crop_chunk": cfg.crop_chunk,
-        "crop_chunk_tail": cfg.crop_chunk_tail, "wall_s": wall, "plain_decode_wall_s": plain_wall,
-        "live_crops_per_phase": live, "executed_crops_per_phase": executed,
-        "gflop_per_crop": {"objectness_both_heads": both / 1e9, "objectness_sdf_only": sdf_only / 1e9,
-                           "classifier": cls / 1e9},
-        "model_tflop": flops / 1e12, "achieved_tflop_per_s": flops / wall / 1e12,
-        "mfu_vs_989_tflops_bf16": flops / wall / 989e12,
-        "kernel_launches": launches, "max_memory_allocated_bytes": peak,
-        "stats": [r["stats"] for r in results], "n_boxes": [len(r["boxes"]) for r in results],
+        "norm_leaves": norms, "cuts": cuts, "crop_size": cfg.crop_size, "crop_chunk": cfg.crop_chunk,
+        "crop_chunk_tail": cfg.crop_chunk_tail, "kernel_launches": launches,
+        "decode_max_abs_err": max(errors), "stats": [r["stats"] for r in results],
+        "n_boxes": [len(r["boxes"]) for r in results],
     })
-    # outside the counted run: the kernel against its plain version on that chunk
-    chunk_row = decode_row("main_path_chunk", *first_chunk, require_scored=False)
+    # outside the counted run: the kernel against its plain version on the first centre chunk
+    chunk_row = decode_row("main_path_chunk", *calls[0][:2], require_scored=False)
+    del calls[:]
     emit({"phase": "kernel_main_path_chunk", "name": "fused_center_decode", "result": chunk_row})
     return {"objectness": objectness, "fns": fns, "images": images, "results": results, "launches": launches,
-            "cuts": cuts,
-            "chunk_row": chunk_row, "gflop_per_crop": {"both_heads": both / 1e9, "classifier": cls / 1e9}}
+            "cuts": cuts, "chunk_row": chunk_row}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -727,16 +625,12 @@ def phase_scoring(device, main_path):
         problems.append(pp)
 
     n_crops = -(-sum(len(b) for b in boxes) // cfg.slot_multiple) * cfg.slot_multiple
-    gflop = main_path["gflop_per_crop"]
-    flops = n_crops * (gflop["both_heads"] + gflop["classifier"]) * 1e9
     emit({
         "phase": "scoring", "config": dataclasses.asdict(cfg),
         "images": [list(im.shape[:2]) for im in images], "boxes_per_image": [len(b) for b in boxes],
         "lattice_slots": n_crops, "annotations_per_image": [len(a) for a in batched],
         "device_s": timings["device_s"], "host_s": timings["host_s"], "wall_s": wall, "first_call_wall_s": first_wall,
         "crops_per_s": n_crops / wall, "crops_per_device_s": n_crops / timings["device_s"],
-        "gflop_per_crop": gflop, "model_tflop": flops / 1e12,
-        "mfu_vs_989_tflops_bf16_device_s": flops / timings["device_s"] / H100_BF16_FLOPS,
         "max_memory_allocated_bytes": peak, "pastes_checked": len(calls),
         "max_rel_score_diff_batched_vs_single": max_rel, "repeat_call_equal": first == batched,
         "checks_failed": problems,
@@ -1971,7 +1865,6 @@ def hybrid_discovery(device, trainer, obj_path, kernel_counters):
         build_classifier, build_objectness, init_random_variables, load_objectness_weights, make_apply_fns,
     )
     from unmore_tpu_torch.models.hybrid import StdConv2dSame
-    from unmore_tpu_torch.ops.fields import center_singularity_scores
     from unmore_tpu_torch.reasoning.engine import ObjectDiscoveryEngine, ReasoningConfig
 
     objectness = build_objectness(DptHybrid, "bfloat16", device)
@@ -1987,18 +1880,10 @@ def hybrid_discovery(device, trainer, obj_path, kernel_counters):
     init_random_variables(classifier, seed=0)
     images = synthetic_images(seed=0)
     fns = make_apply_fns(objectness, classifier)
-    calls = []
 
     def group(**extra):
         cuts = dict(MAIN_PATH_CUTS, **extra, **calibrate(objectness, images[0], ReasoningConfig(), device))
         engine = ObjectDiscoveryEngine(*fns, ReasoningConfig(**cuts), device=device)
-
-        def record(sdf, center, decode=engine._decode):
-            out = decode(sdf, center)
-            calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
-            return out
-
-        engine._decode = record
         peak_bytes(device, reset=True)
         t0 = time.perf_counter()
         results = engine.discover_batch(images)
@@ -2007,10 +1892,10 @@ def hybrid_discovery(device, trainer, obj_path, kernel_counters):
         check_boxes(images, results, "dpt_hybrid discovery")
         return results, cuts, wall, peak_bytes(device)
 
-    start = launch_counts(kernel_counters)
-    on_trained = group()
-    init_random_variables(objectness, seed=0)
-    results, cuts, wall, peak = group(sticky_convergence=False)
+    with record_decode(kernel_counters) as (calls, start):
+        on_trained = group()
+        init_random_variables(objectness, seed=0)
+        results, cuts, wall, peak = group(sticky_convergence=False)
     launches = launch_counts(kernel_counters, since=start)
     cfg = ReasoningConfig(**cuts)
     rounds = [r["stats"]["boundary_rounds"] for r in results]
@@ -2020,37 +1905,24 @@ def hybrid_discovery(device, trainer, obj_path, kernel_counters):
         if n == 0:
             fail(f"kernel {name} was not launched on the dpt_hybrid path")
 
-    errors = []
-    for sdf, center, got in calls:  # outside the counted runs
-        want = center_singularity_scores(sdf, center)
-        pos = want[0] > 1e-4
-        if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
-            fail("the decode kernel's union or argmax differs from the plain version on the dpt_hybrid path")
-        errors.append(float((got[0] - want[0]).abs().max()))
+    errors = decode_errors(calls, "the dpt_hybrid path")  # outside the counted runs
     if len(calls) != launches["fused_center_decode"] or any(e != 0.0 for e in errors):
         fail(f"dpt_hybrid decode launches against the plain version: {errors} ({len(calls)} recorded)")
-
-    live, executed = crop_counts(results, cfg)
-    both, sdf_only, cls = model_flops_per_crop(objectness, classifier, cfg.crop_size, device)
-    flops = group_flops(executed, both, sdf_only, cls)
+    del calls[:]
     row = {
         "on_trained_weights": {"cuts": on_trained[1], "wall_s": on_trained[2], "stats": [r["stats"] for r in
                                                                                        on_trained[0]]},
         "weights": "phase 3's seeded random weights (init_random_variables, seed 0); the reference's rounds",
-        "cuts": cuts, "wall_s": wall, "live_crops_per_phase": live, "executed_crops_per_phase": executed,
-        "gflop_per_crop": {"objectness_both_heads": both / 1e9, "objectness_sdf_only": sdf_only / 1e9,
-                           "classifier": cls / 1e9},
-        "model_tflop": flops / 1e12, "mfu_vs_989_tflops_bf16": flops / wall / H100_BF16_FLOPS,
-        "max_memory_allocated_bytes": peak, "kernel_launches": launches, "f32_standardised_kernels": len(ws),
-        "decode_max_abs_err_per_launch": errors,
+        "cuts": cuts, "wall_s": wall, "max_memory_allocated_bytes": peak, "kernel_launches": launches,
+        "f32_standardised_kernels": len(ws), "decode_max_abs_err_per_launch": errors,
         "stats": [r["stats"] for r in results], "n_boxes": [len(r["boxes"]) for r in results],
     }
-    return fns, row, {"both_heads": both / 1e9, "classifier": cls / 1e9}
+    return fns, row
 
 
-def hybrid_scoring(device, fns, gflop, discovered):
+def hybrid_scoring(device, fns, discovered):
     """One scoring call at phase 4's inputs after a warm-up call: device and
-    host seconds and MFU."""
+    host seconds."""
     import numpy as np
 
     from unmore_tpu_torch.reasoning.scoring import ObjectScoringEngine, ScoringConfig
@@ -2072,11 +1944,9 @@ def hybrid_scoring(device, fns, gflop, discovered):
     if not all(np.isfinite(scores)) or anns != first:
         fail("dpt_hybrid scoring: non-finite scores, or two calls on the same inputs differ")
     n_crops = -(-sum(len(b) for b in boxes) // cfg.slot_multiple) * cfg.slot_multiple
-    flops = n_crops * (gflop["both_heads"] + gflop["classifier"]) * 1e9
     return {"lattice_slots": n_crops, "annotations_per_image": [len(a) for a in anns],
             "device_s": timings["device_s"], "host_s": timings["host_s"], "wall_s": wall,
-            "first_call_wall_s": first_wall, "crops_per_device_s": n_crops / timings["device_s"],
-            "mfu_vs_989_tflops_bf16_device_s": flops / timings["device_s"] / H100_BF16_FLOPS}
+            "first_call_wall_s": first_wall, "crops_per_device_s": n_crops / timings["device_s"]}
 
 
 def hybrid_f32_card_vs_cpu(device, batch_host):
@@ -2158,10 +2028,10 @@ def phase_hybrid(device, kernel_counters, discovered, dpt_large_bf16):
     folder = Path("build") / "smoke_hybrid"
     folder.mkdir(parents=True, exist_ok=True)
     trainer, obj_path, train_row = hybrid_train(device, world, folder)
-    fns, discovery, gflop = hybrid_discovery(device, trainer, obj_path, kernel_counters)
+    fns, discovery = hybrid_discovery(device, trainer, obj_path, kernel_counters)
     launches = discovery["kernel_launches"]
     del trainer
-    scoring = hybrid_scoring(device, fns, gflop, discovered)
+    scoring = hybrid_scoring(device, fns, discovered)
     del fns
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -2556,38 +2426,18 @@ def dist_rank_stage2(device, center_thres):
     import torch
 
     from unmore_tpu_torch.cli import object_reasoning, object_scoring
-    from unmore_tpu_torch.ops.fields import center_singularity_scores
-    from unmore_tpu_torch.reasoning import engine
-    from unmore_tpu_torch.utils import tracing
 
-    calls, real = [], engine.fused_center_decode
-
-    def record(sdf, center, *args, **kwargs):  # the engine takes its decode when the CLI builds it
-        out = real(sdf, center, *args, **kwargs)
-        calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
-        return out
-
-    engine.fused_center_decode = record
     disc, score = dist_stage2_argv("two", center_thres, False, device)
-    start = tracing.counter(DECODE_LAUNCHES)
-    try:
-        with stage2_in(DIST_FOLDER):
-            t0 = time.perf_counter()
-            object_reasoning.main(disc)
-            discovery_s = time.perf_counter() - t0
-            launches = tracing.counter(DECODE_LAUNCHES) - start
-            t0 = time.perf_counter()
-            object_scoring.main(score)
-            scoring_s = time.perf_counter() - t0
-    finally:
-        engine.fused_center_decode = real
-    errors = []
-    for sdf, center, got in calls:
-        want = center_singularity_scores(sdf, center)
-        pos = want[0] > 1e-4
-        if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
-            fail("the decode kernel's union or argmax differs from the plain version on a rank")
-        errors.append(float((got[0] - want[0]).abs().max()))
+    counters = {"fused_center_decode": DECODE_LAUNCHES}
+    with record_decode(counters) as (calls, start), stage2_in(DIST_FOLDER):
+        t0 = time.perf_counter()
+        object_reasoning.main(disc)
+        discovery_s = time.perf_counter() - t0
+        launches = launch_counts(counters, since=start)["fused_center_decode"]
+        t0 = time.perf_counter()
+        object_scoring.main(score)
+        scoring_s = time.perf_counter() - t0
+    errors = decode_errors(calls, "a rank")
     ok = launches > 0 and len(calls) == launches and all(e == 0.0 for e in errors)
     del calls
     torch.cuda.empty_cache()
@@ -2717,7 +2567,6 @@ CHAIN_TIMEOUT_S = 900  # the chain's processes are killed, and the smoke fails, 
 # on 8 of 8 in the 8-scene world); one scene of margin. From the earlier
 # torch.Generator init it was 3 of 8.
 CHAIN_MIN_SCENES_WITH_BOXES = 5
-PACK_CROPS, PACK_TIMED_CROPS = 8, 256
 
 
 def run_chain(work):
@@ -2791,7 +2640,7 @@ def chain_rerun(work, kernel_counters):
         object_reasoning.main(chain.discovery_argv(0, end) + ["--run_name", "rerun"])
     seconds = time.perf_counter() - t0
     launches = launch_counts(kernel_counters, since=start)
-    errors = decode_errors(calls)  # outside the counted run
+    errors = decode_errors(calls, "the chain's discovery")  # outside the counted run
     n_calls = len(calls)
     del calls[:]
     ours = json.loads((work / "results_reasoning" / f"rerun_0_{end}" / "discovery_results.json").read_text())
@@ -2811,14 +2660,14 @@ def launch_counts(kernel_counters, since=None):
 
 
 def record_decode(kernel_counters):
-    """A context in which every decode call of an engine built inside it is
-    kept (inputs and outputs): yields the list of calls and the kernels'
-    counts at its start."""
+    """A context in which every decode call of the discovery engine is kept
+    (inputs and outputs): yields the list of calls and the kernels' counts
+    at its start."""
     from unmore_tpu_torch.reasoning import engine
 
     calls, real = [], engine.fused_center_decode
 
-    def record(sdf, center, *args, **kwargs):  # an engine takes its decode when it is built
+    def record(sdf, center, *args, **kwargs):
         out = real(sdf, center, *args, **kwargs)
         calls.append((sdf.clone(), center.clone(), [t.clone() for t in out]))
         return out
@@ -2834,10 +2683,10 @@ def record_decode(kernel_counters):
     return recording()
 
 
-def decode_errors(calls):
+def decode_errors(calls, what):
     """Each recorded decode call against the plain version on its inputs
     (outside any counted run): the max abs errors of the scores; fails on a
-    union or argmax that differs."""
+    union or argmax that differs on ``what``."""
     import torch
 
     from unmore_tpu_torch.ops.fields import center_singularity_scores
@@ -2847,7 +2696,7 @@ def decode_errors(calls):
         want = center_singularity_scores(sdf, center)
         pos = want[0] > 1e-4
         if not (torch.equal(got[2], want[2]) and torch.equal(got[1][pos], want[1][pos])):
-            fail("the decode kernel's union or argmax differs from the plain version on the chain's discovery")
+            fail(f"the decode kernel's union or argmax differs from the plain version on {what}")
         errors.append(float((got[0] - want[0]).abs().max()))
     return errors
 
@@ -2866,7 +2715,7 @@ def ab_rerun(work, kernel_counters):
         sticky_ab.main(chain.ab_argv() + ["--modes", "reference_rounds", "--out", str(out)])
     seconds = time.perf_counter() - t0
     launches = launch_counts(kernel_counters, since=start)
-    errors = decode_errors(calls)
+    errors = decode_errors(calls, "the sticky A/B's discovery")
     n_calls = len(calls)
     del calls[:]
     keys = ("boundary_crops", "n_annotations", *sticky_ab.AP_KEYS)
@@ -2908,41 +2757,7 @@ def ab_problems(report):
     return problems
 
 
-def vit_pack_check(device):
-    """DPT-Large (seeded random weights) with two crops a packed ViT sequence
-    against one: the f32 forward on :data:`PACK_CROPS` crops (max abs
-    difference, bound 1e-4) and the bf16 forward's ms on a
-    :data:`PACK_TIMED_CROPS`-crop chunk, each way, in one call."""
-    import torch
-
-    from unmore_tpu_torch.cli.common import build_objectness, init_random_variables
-
-    model = build_objectness(DptLarge, "float32", device)
-    init_random_variables(model, seed=0)
-    crops = torch.rand(PACK_CROPS, 128, 128, 3, generator=torch.Generator().manual_seed(0)).to(device)
-    outs = {}
-    with torch.inference_mode():
-        for pack in (1, 2):
-            model.backbone.vit_pack = pack
-            outs[pack] = model(crops)
-    diff = max(float((outs[2][k] - outs[1][k]).abs().max()) for k in outs[1])
-    model.to(torch.bfloat16)
-    chunk = torch.rand(PACK_TIMED_CROPS, 128, 128, 3, generator=torch.Generator().manual_seed(1)).to(device)
-    ms = {}
-    for pack in (1, 2, 2, 1):  # in turns
-        model.backbone.vit_pack = pack
-
-        def forward():
-            with torch.inference_mode():
-                model(chunk)
-
-        ms.setdefault(f"pack{pack}", []).append(time_ms(forward, iters=5, warmup=2))
-    del model
-    torch.cuda.empty_cache()
-    return {"f32_max_abs_diff": diff, "bound": 1e-4, "bf16_chunk_ms": ms, "chunk_crops": PACK_TIMED_CROPS}
-
-
-def phase_chain(device, kernel_counters):
+def phase_chain(kernel_counters):
     import shutil
 
     import torch
@@ -2958,7 +2773,7 @@ def phase_chain(device, kernel_counters):
             log = CHAIN_FOLDER / (f"{step}.log" if steps else "chain.log")
             print(f"--- {log}:\n" + (log.read_text()[-4000:] if log.exists() else "(none)"), flush=True)
         fail(f"phase chain: the chain exited {rc} after {chain_s:.1f} s, failed steps {steps}")
-    row = chain_checks(CHAIN_FOLDER, device, kernel_counters)
+    row = chain_checks(CHAIN_FOLDER, kernel_counters)
     emit({"phase": "chain", "chain_s": chain_s, **row, "phase_s": time.perf_counter() - t_phase})
     if row["checks_failed"]:
         fail(f"phase chain: {row['checks_failed']}")
@@ -2967,7 +2782,7 @@ def phase_chain(device, kernel_counters):
             "sticky_ab": row["ab_rerun"]["launches"]["fused_center_decode"]}
 
 
-def chain_checks(work, device, kernel_counters):
+def chain_checks(work, kernel_counters):
     """Phase chain's checks and figures on the chain run in ``work``."""
     a = chain_knobs(work).a
     problems = chain_contracts(work)
@@ -2988,9 +2803,6 @@ def chain_checks(work, device, kernel_counters):
         problems.append("the in-process discovery's boxes differ from the chain's discovery_results.json")
     if not ab["leg_equal"]:
         problems.append(f"the in-process reference_rounds leg {ab['leg']} differs from the chain's")
-    pack = vit_pack_check(device)
-    if not pack["f32_max_abs_diff"] <= pack["bound"]:
-        problems.append(f"vit_pack 2 differs from 1 by {pack['f32_max_abs_diff']}")
     gt = json.loads((Path(a.synth) / "coco" / "instances.json").read_text())
     ap = report.get("pseudo_label_ap", {})
     return {"stage_wall_s": report["stage_wall_s"],
@@ -3001,7 +2813,7 @@ def chain_checks(work, device, kernel_counters):
             "pseudo_label_ap": {t: {k: ap.get(t, {}).get(k) for k in ("AP", "AP50")} for t in ("bbox", "segm")},
             "cad_train": report.get("cad_train"), "cad_final_eval": report.get("cad_final_eval"),
             "supervisor_events": report.get("supervisor_events"), "ab": ab_figures(report), "rerun": rerun,
-            "ab_rerun": ab, "vit_pack": pack, "checks_failed": problems}
+            "ab_rerun": ab, "checks_failed": problems}
 
 
 # ------------------------------------------------------------------ phase 12
@@ -3205,7 +3017,7 @@ def main():
     phase_cad_train(device, smi)
     hybrid_launches = phase_hybrid(device, counters, main_path["results"], bf16)
     dist_launches = phase_dist(device, main_path["cuts"]["center_score_max_thres"])
-    chain_launches = phase_chain(device, counters)
+    chain_launches = phase_chain(counters)
     phase_parity()
     phase_init(device)
 
@@ -3220,7 +3032,7 @@ def main():
                              **{f"dist_{k}": v for k, v in dist_launches.items()}, **chain_launches},
         "max_abs_err": max(r["max_abs_err"] for r in (*kernel_rows.values(), chunk_row)),
         "ms": main_row["ms"], "device_ms": main_row["device_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"], "library_ms": None,
+        "bound_ms": main_row["bound_ms"], "library_ms": None,
         "main_path_chunk": {k: chunk_row[k] for k in ("shape", "ms", "device_ms", "bound_ms")},
     }]})
     print(smi, flush=True)

@@ -51,7 +51,7 @@ ARGS = ["--device", "cpu", "--dtype", "float32", "--sdf_activation", "tanh", "--
         "--image_size", "32", "--canvas_size", "96", "--max_proposals", "64", "--max_splits", "64",
         "--max_active", "64", "--crop_chunk", "32", "--crop_chunk_tail", "16", "--exist_chunk", "64",
         "--n_round", "2", "--class_score_thres", "0", "--run_name", "smoke", "--devices", "1",
-        # flags of the TPU build: accepted and ignored (--vit_pack is taken: 2 divides the chunks)
+        # flags of the TPU build: accepted and ignored
         "--pallas_decode", "on", "--boundary_segment", "4", "--vit_pack", "2", "--max_restarts", "0"]
 
 
@@ -86,9 +86,55 @@ def test_help_names_the_ignored_flags(capsys):
     for flag in ("--pallas_decode", "--boundary_segment", "--vit_pack", "--devices", "--gpu_index",
                  "--max_restarts", "--hang_timeout_min", "--busy_hang_timeout_min"):
         assert flag in text
-    # three flags of the TPU build; --vit_pack packs crops, --max_restarts and --hang_timeout_min
-    # supervise the run, and --devices and --gpu_index pick the cards
-    assert text.count("ignored by this build") >= 3 and "packed encoder sequence" in text
+    # four flags of the TPU build; --max_restarts and --hang_timeout_min supervise the run, and
+    # --devices and --gpu_index pick the cards
+    assert text.count("ignored by this build") >= 4
+
+
+class Built(Exception):
+    """The CLI reached its model build."""
+
+
+def tiny_net(backbone_type="dpt_large", sdf_activation=None, use_bg_sdf=False, **kwargs):
+    # ObjectnessNet at TINY widths with the caller's other arguments, so that one it does not take raises
+    return ObjectnessNet("dpt_base", sdf_activation, use_bg_sdf, **TINY, **kwargs)
+
+
+@pytest.mark.parametrize("cli", ["object_reasoning", "object_scoring", "train_objectness_net"])
+def test_vit_pack_is_accepted_and_ignored(cli, tmp_path, monkeypatch):
+    # the JAX CLIs refuse --vit_pack 3: it divides neither the stage-2 chunks nor the stage-1 batch of 16;
+    # the port reaches its model build with it and builds the model it builds without it
+    from unmore_tpu_torch.cli import object_scoring, train_objectness_net
+    from unmore_tpu_torch.models import objectness
+
+    monkeypatch.setattr(common, "ObjectnessNet", tiny_net)
+    monkeypatch.setattr(objectness, "ObjectnessNet", tiny_net)
+    monkeypatch.chdir(tmp_path)
+    coco = ["--coco_image_dir", "i", "--coco_annotations", "a", "--device", "cpu", "--devices", "1"]
+    (tmp_path / "r").mkdir()
+    (tmp_path / "r" / "d.json").write_text("{}")
+    module, argv, site = {
+        "object_reasoning": (object_reasoning, coco + ["--run_name", "x"], (common, "build_objectness")),
+        "object_scoring": (object_scoring, coco + ["--raw_annotations_path", "r/d.json"], (common, "build_objectness")),
+        "train_objectness_net": (train_objectness_net, ["--train_center_and_boundary", "--device", "cpu",
+                                                        "--batch_size", "16"],
+                                 (train_objectness_net, "build_objectness_model")),
+    }[cli]
+    real = getattr(*site)
+    build = real if cli == "train_objectness_net" else lambda args: real(args, "float32", "cpu")
+    seen = []
+
+    def reached(args, *rest):
+        seen.append(args)
+        raise Built
+
+    monkeypatch.setattr(*site, reached)
+    with pytest.raises(Built):
+        module.main(argv + ["--vit_pack", "3"])
+    assert seen[0].vit_pack == 3
+    with_flag, without = build(seen[0]), build(module.parse_args(argv))
+    assert list(with_flag.state_dict()) == list(without.state_dict())
+    assert not [m for m in with_flag.modules() if hasattr(m, "vit_pack")]
 
 
 def test_partial_plumbing_matches_the_jax_package(tmp_path):

@@ -149,3 +149,27 @@ def test_engine_uint8_wire_matches_jax():
     world_q = np.clip(world * 255.0 + 0.5, 0, 255).astype(np.uint8)
     got, want = run_both([world_q])
     assert_same_results(got, want)
+
+
+@pytest.mark.parametrize("case", ["sticky", "reference_rounds", "no_cc"])
+def test_record_decode_sees_every_decode_call(case):
+    # chip_smoke.py holds each decode launch of a discovery against the plain version through
+    # record_decode: it must see one call per centre-field model call, centre and recheck chunks alike
+    import chip_smoke
+
+    overrides = {"sticky": dict(analyze_cc=True), "reference_rounds": dict(analyze_cc=True, sticky_convergence=False),
+                 "no_cc": {}}[case]
+    center_calls = []
+
+    def objectness(crops, compute_center=True):
+        center_calls.append(compute_center)
+        return torch_objectness(crops, compute_center)
+
+    cfg = ReasoningConfig(**dict(BASE, n_round=5, **overrides))
+    port = ObjectDiscoveryEngine(objectness, torch_classifier, cfg, device="cpu")
+    world = make_world(200, [A, B])
+    with chip_smoke.record_decode({"fused_center_decode": chip_smoke.DECODE_LAUNCHES}) as (calls, _):
+        stats = port.discover_batch([world])[0]["stats"]
+    assert stats["n_recheck_center_in"] > 0 and False in center_calls  # recheck chunks and boundary rounds ran
+    assert len(calls) == center_calls.count(True) > 1
+    assert chip_smoke.decode_errors(calls, case) == [0.0] * len(calls)

@@ -239,12 +239,13 @@ def test_supervisor_flag_pins_the_run_and_resumes(monkeypatch):
     assert restart[restart.index("--resume") + 1] == f"results_objectness/existence/{run_name}/ckpt/iter_9_model.ckpt"
 
 
-def test_vit_pack_is_refused_and_no_cpu_fallback(monkeypatch, tmp_path):
-    # packing is ported: only a value that does not divide the batch is refused, as by the JAX CLI
-    with pytest.raises(SystemExit, match="--vit_pack 3 must divide --batch_size 16"):
-        cli.main(["--train_center_and_boundary", "--vit_pack", "3"])
+def test_vit_pack_is_ignored_and_no_cpu_fallback(monkeypatch, tmp_path):
+    # --vit_pack is accepted and ignored: a value that does not divide the batch of 16, which the JAX CLI
+    # refuses, goes on to the device; without a card neither trainer falls back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--train_center_and_boundary", "--batch_size", "16", "--vit_pack", "3"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["--train_existence", "--imagenet_dir", str(tmp_path), "--votecut_mask_dir", str(tmp_path)])
 

@@ -47,8 +47,6 @@ def build_objectness(args_like, dtype="bfloat16", device=None) -> ObjectnessNet:
         backbone_type=getattr(args_like, "backbone_type", "dpt_large"),
         sdf_activation=getattr(args_like, "sdf_activation", None),
         use_bg_sdf=getattr(args_like, "use_bg_sdf", False),
-        # crops per packed encoder sequence: the crop chunks must divide by it
-        vit_pack=getattr(args_like, "vit_pack", 1) or 1,
     )
     return model.to(resolve_device(device), DTYPES[dtype]).eval()
 

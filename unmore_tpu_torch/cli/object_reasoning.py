@@ -18,9 +18,8 @@ merged files. Checkpoints are the JAX
 trainers' msgpack files or torch ``.ckpt`` / state_dict files; without one
 the model gets seeded random weights. ``--max_restarts N`` runs the CLI as
 a supervised child that is relaunched after a crash or a hang and resumes
-from the partial file (``cli/supervisor.py``). ``--vit_pack k`` packs k
-crops into one encoder sequence, as the JAX package does. Flags of the TPU
-build that have no meaning here are accepted and ignored (see ``--help``).
+from the partial file (``cli/supervisor.py``). Flags of the TPU build that
+have no meaning here are accepted and ignored (see ``--help``).
 """
 
 from __future__ import annotations
@@ -87,8 +86,7 @@ def parse_args(argv=None):
                    help=IGNORED + " (the CUDA decode kernel runs for CUDA tensors)")
     p.add_argument("--boundary_segment", type=int, default=0, help=IGNORED)
     p.add_argument("--vit_pack", type=int, default=1,
-                   help="ViT sequence packing: crops per packed encoder sequence (numerically the same; must "
-                        "divide crop_chunk and crop_chunk_tail)")
+                   help=IGNORED + " (ViT sequence packing: every crop runs its own encoder sequence)")
     p.add_argument("--devices", type=int, default=-1,
                    help="cards to run on, one rank each (-1: every visible card); ranks on the CPU with --device cpu")
     supervisor.add_flags(p, IGNORED)
@@ -141,9 +139,6 @@ def main(argv=None):
             json.dump(vars(args), f, indent=2)
     print("result_folder", result_folder)
 
-    if args.vit_pack > 1 and (args.crop_chunk % args.vit_pack or args.crop_chunk_tail % args.vit_pack):
-        raise SystemExit(f"--vit_pack {args.vit_pack} must divide --crop_chunk {args.crop_chunk} "
-                         f"and --crop_chunk_tail {args.crop_chunk_tail}")
     objectness = build_objectness(args, args.dtype, device)
     classifier = build_classifier(args.dtype, device)
     init_random_variables(objectness, classifier, seed=args.seed)

@@ -18,9 +18,8 @@ rank 0 writes the annotations of every rank, in rank order. Checkpoints are the 
 trainers' msgpack files or torch ``.ckpt`` / state_dict files; without one
 the models get seeded random weights. ``--max_restarts N`` runs the CLI as
 a supervised child that is relaunched after a crash or a hang and resumes
-from the partial file (``cli/supervisor.py``). ``--vit_pack k`` packs k
-crops into one encoder sequence, as the JAX package does. Flags of the TPU
-build that have no meaning here are accepted and ignored (see ``--help``).
+from the partial file (``cli/supervisor.py``). Flags of the TPU build that
+have no meaning here are accepted and ignored (see ``--help``).
 """
 
 from __future__ import annotations
@@ -65,8 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--canvas_size", type=int, default=640)
     p.add_argument("--crop_chunk", type=int, default=128, help="model microbatch")
     p.add_argument("--vit_pack", type=int, default=1,
-                   help="ViT sequence packing: crops per packed encoder sequence (numerically the same; must "
-                        "divide crop_chunk)")
+                   help=IGNORED + " (ViT sequence packing: every crop runs its own encoder sequence)")
     p.add_argument("--image_batch", type=int, default=4, help="images scored per shared proposal lattice")
     p.add_argument("--devices", type=int, default=-1,
                    help="cards to run on, one rank each (-1: every visible card); ranks on the CPU with --device cpu")
@@ -106,8 +104,6 @@ def main(argv=None):
         with open(os.path.join(result_folder, "configs_object_scoring.json"), "w") as f:
             json.dump(vars(args), f, indent=2)
     print("result_folder", result_folder)
-    if args.vit_pack > 1 and args.crop_chunk % args.vit_pack:
-        raise SystemExit(f"--vit_pack {args.vit_pack} must divide --crop_chunk {args.crop_chunk}")
     with open(args.raw_annotations_path) as f:
         raw_annotations = json.load(f)
     print("# of loaded images", len(raw_annotations))

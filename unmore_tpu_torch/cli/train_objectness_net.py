@@ -102,8 +102,7 @@ def parse_args(argv=None):
                    help="checkpoint the ViT blocks (recompute their activations in the backward pass); "
                         "dpt_hybrid ignores it, as the JAX package does")
     p.add_argument("--vit_pack", type=int, default=1,
-                   help="ViT sequence packing: crops per packed encoder sequence (numerically the same; must "
-                        "divide --batch_size and each rank's share of it)")
+                   help=IGNORED + " (ViT sequence packing: every crop runs its own encoder sequence)")
     p.add_argument("--skip_loss_above", type=float, default=1000.0,
                    help="spike guard: skip the update when the batch loss exceeds this "
                         "(non-finite always skips; 0 disables)")
@@ -166,8 +165,7 @@ def append_log(path, iteration, value):
 def build_objectness_model(args):
     from unmore_tpu_torch.models.objectness import ObjectnessNet
 
-    return ObjectnessNet(args.backbone_type, args.sdf_activation, args.use_bg_sdf, remat_vit=args.remat_vit,
-                         vit_pack=args.vit_pack)
+    return ObjectnessNet(args.backbone_type, args.sdf_activation, args.use_bg_sdf, remat_vit=args.remat_vit)
 
 
 def build_classifier_model(args):
@@ -256,8 +254,6 @@ def train_center_and_boundary(args):
         skip_loss_above=args.skip_loss_above, spike_guard_warmup=args.spike_guard_warmup,
     )
     device = _setup(args)
-    if dist.local_batch_size(args.batch_size) % args.vit_pack:
-        raise SystemExit(f"--vit_pack {args.vit_pack} must divide a rank's share of --batch_size {args.batch_size}")
     trainer = ObjectnessTrainer(_model(build_objectness_model, args, device), cfg)
     start_iter = _resume(trainer, args)
     crop_scale = (args.random_crop_scale_min, args.random_crop_scale_max)
@@ -495,8 +491,6 @@ def train_existence(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.train_center_and_boundary and args.vit_pack > 1 and args.batch_size % args.vit_pack:
-        raise SystemExit(f"--vit_pack {args.vit_pack} must divide --batch_size {args.batch_size}")
     raw = list(argv) if argv is not None else sys.argv[1:]
 
     from unmore_tpu_torch.cli.common import launch_local_ranks, pin_run_name

@@ -99,21 +99,19 @@ class DPTFeatureExtractor(nn.Module):
 
     ``backbone`` picks a named spec; ``vit_config``/``hooks``/``widths``/
     ``hybrid_resnet_kwargs`` override it (the tests use miniature
-    dimensions). ``remat_vit`` checkpoints the ViT blocks in training and
-    ``vit_pack`` packs that many crops into one encoder sequence
-    (:class:`ViTBackbone`); the hybrid ignores both, as the JAX package does.
+    dimensions). ``remat_vit`` checkpoints the ViT blocks in training
+    (:class:`ViTBackbone`); the hybrid ignores it, as the JAX package does.
     """
 
     def __init__(self, backbone: str = "vitl16_384", features: int = 256,
                  vit_config: ViTConfig | None = None, hooks=None, widths=None, remat_vit: bool = False,
-                 hybrid_resnet_kwargs=None, vit_pack: int = 1):
+                 hybrid_resnet_kwargs=None):
         super().__init__()
         spec = DPT_BACKBONE_SPECS[backbone]
         vit_cfg = vit_config or VIT_CONFIGS[spec["vit"]]
         hooks = tuple(hooks) if hooks is not None else spec["hooks"]
         widths = tuple(widths) if widths is not None else spec["features"]
         self.patch = vit_cfg.patch
-        self.vit_pack = 1 if backbone == HYBRID else vit_pack
         self.pretrained = nn.Module()
         if backbone == HYBRID:
             self.pretrained.model = HybridViTBackbone(vit_cfg, hooks, hybrid_resnet_kwargs)
@@ -131,8 +129,7 @@ class DPTFeatureExtractor(nn.Module):
         B, _, H, W = x.shape
         gh, gw = H // self.patch, W // self.patch
         maps = []
-        taps = self.pretrained.model(x) if self.vit_pack == 1 else self.pretrained.model(x, self.vit_pack)
-        for i, tap in enumerate(taps):
+        for i, tap in enumerate(self.pretrained.model(x)):
             post = getattr(self.pretrained, f"act_postprocess{i + 1}")
             if isinstance(post, nn.Identity):  # a trunk stage's map
                 maps.append(tap)

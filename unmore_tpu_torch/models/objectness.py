@@ -10,10 +10,8 @@ with the reference checkpoint's indices (0, 2, 4, 6 with ReLUs between;
 
 Backbones: ``dpt_large`` (ViT-L/16), ``dpt_base`` (ViT-B/16) and
 ``dpt_hybrid`` (a ResNetV2-50 trunk under ViT-B/16, ``models/hybrid.py``).
-``remat_vit`` checkpoints the ViT blocks of the first two in training and
-``vit_pack`` packs that many crops into one encoder sequence (numerically
-the same, the crop batch must divide by it); the hybrid ignores both, as the
-JAX package does.
+``remat_vit`` checkpoints the ViT blocks of the first two in training; the
+hybrid ignores it, as the JAX package does.
 
 Public layout is NHWC as in the JAX package: images [B, H, W, 3] in [0, 1];
 center_fields [B, H, W, 2] (dy, dx) and sdf_maps [B, H, W], both f32.
@@ -138,14 +136,14 @@ def replayable(images: torch.Tensor) -> bool:
 class ObjectnessNet(nn.Module):
     def __init__(self, backbone_type: str = "dpt_large", sdf_activation: str | None = "tanh",
                  use_bg_sdf: bool = True, features: int = 256, vit_config=None, hooks=None,
-                 widths=None, remat_vit: bool = False, hybrid_resnet_kwargs=None, vit_pack: int = 1):
+                 widths=None, remat_vit: bool = False, hybrid_resnet_kwargs=None):
         super().__init__()
         self.sdf_activation, self.use_bg_sdf = sdf_activation, use_bg_sdf  # the SDF head's layout
         if backbone_type not in BACKBONE_ALIASES:
             raise ValueError(f"unknown backbone_type {backbone_type!r}; choose one of {sorted(BACKBONE_ALIASES)}")
         self.backbone = DPTFeatureExtractor(
             BACKBONE_ALIASES[backbone_type], features, vit_config=vit_config, hooks=hooks, widths=widths,
-            remat_vit=remat_vit, hybrid_resnet_kwargs=hybrid_resnet_kwargs, vit_pack=vit_pack,
+            remat_vit=remat_vit, hybrid_resnet_kwargs=hybrid_resnet_kwargs,
         )
         self.center_field_prediction_head = conv_head(features, 2, use_relu=True)
         use_relu, final = sdf_head_layout(sdf_activation, use_bg_sdf)

@@ -10,13 +10,7 @@ embeddings are stored at the pretraining grid and bilinearly resized
 (``align_corners=False``) to the runtime grid. Attention is a plain matmul
 with the softmax in f32. With ``remat`` each block runs under
 ``torch.utils.checkpoint`` while gradients are on: its activations are
-recomputed in the backward pass (the JAX package's ``remat_vit``). With
-``pack`` > 1 the encoder runs on packed sequences (the JAX package's
-``vit_pack``): ``pack`` crops' tokens are concatenated into one sequence
-under a block-diagonal additive mask, so that no token attends across
-crops, and the taps are split back per crop. The results are those of
-``pack`` = 1 up to rounding (the softmax rows are unchanged; LayerNorm, MLP
-and projections act per token); the attention's FLOPs grow ``pack``-fold.
+recomputed in the backward pass (the JAX package's ``remat_vit``).
 """
 
 from __future__ import annotations
@@ -66,15 +60,11 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, attn_bias=None):
-        """``attn_bias``: an additive [N, N] mask (-inf where a token must
-        not attend), or None."""
+    def forward(self, x):
         B, N, C = x.shape
         hd = C // self.heads
         q, k, v = self.qkv(x).reshape(B, N, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
         attn = (q * hd**-0.5) @ k.transpose(-2, -1)  # [B, H, N, N]
-        if attn_bias is not None:
-            attn = attn + attn_bias.to(attn.dtype)
         attn = attn.float().softmax(dim=-1).to(x.dtype)
         out = (attn @ v).transpose(1, 2).reshape(B, N, C)
         return self.proj(out)
@@ -88,8 +78,8 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, mlp_dim)
 
-    def forward(self, x, attn_bias=None):
-        x = x + self.attn(self.norm1(x), attn_bias)
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
 
@@ -100,9 +90,8 @@ class PatchEmbed(nn.Module):
 
 
 class ViTBackbone(nn.Module):
-    """forward(images [B, 3, H, W], pack=1) -> list of [B, 1 + h*w, C] token
-    maps, the outputs of blocks ``hooks[i]``; cls token at index 0.
-    ``pack`` crops share one encoder sequence (B must divide by it).
+    """forward(images [B, 3, H, W]) -> list of [B, 1 + h*w, C] token maps,
+    the outputs of blocks ``hooks[i]``; cls token at index 0.
     ``patch_embed`` replaces the 16x16 patch conv (the hybrid's trunk and
     projection)."""
 
@@ -118,10 +107,10 @@ class ViTBackbone(nn.Module):
             Block(config.dim, config.heads, config.mlp_dim) for _ in range(config.depth)
         )
 
-    def forward(self, x, pack: int = 1):
-        return self.encode(self.patch_embed.proj(x), pack)
+    def forward(self, x):
+        return self.encode(self.patch_embed.proj(x))
 
-    def encode(self, grid, pack: int = 1):
+    def encode(self, grid):
         """Patch embeddings [B, C, gh, gw] -> the hooked blocks' token maps."""
         cfg = self.config
         B, _, gh, gw = grid.shape
@@ -135,19 +124,11 @@ class ViTBackbone(nn.Module):
             dim=1,
         )
         tokens = torch.cat([self.cls_token.to(tokens.dtype).expand(B, -1, -1), tokens], dim=1) + pos
-        n_tok, bias = 1 + gh * gw, None
-        if pack > 1:
-            if B % pack:
-                raise ValueError(f"vit_pack {pack} must divide the batch of {B} crops")
-            tokens = tokens.reshape(B // pack, pack * n_tok, cfg.dim)
-            crop_of = torch.arange(pack * n_tok, device=tokens.device) // n_tok
-            zero = torch.zeros((), device=tokens.device)
-            bias = torch.where(crop_of[:, None] == crop_of[None, :], zero, zero - torch.inf)
         taps = {}
         last = max(self.hooks)
         remat = self.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks[: last + 1]):
-            tokens = checkpoint(blk, tokens, bias, use_reentrant=False) if remat else blk(tokens, bias)
+            tokens = checkpoint(blk, tokens, use_reentrant=False) if remat else blk(tokens)
             if i in self.hooks:
                 taps[i] = tokens
-        return [taps[h].reshape(B, n_tok, cfg.dim) for h in self.hooks]
+        return [taps[h] for h in self.hooks]

@@ -42,7 +42,6 @@ import torch
 from unmore_tpu_torch import resolve_device
 from unmore_tpu_torch.ops.connected_components import component_boxes, label_components
 from unmore_tpu_torch.ops.decode import fused_center_decode
-from unmore_tpu_torch.ops.fields import center_singularity_scores
 from unmore_tpu_torch.ops.image import crop_and_resize, image_gradients
 from unmore_tpu_torch.ops.nms import nms_mask
 from unmore_tpu_torch.reasoning.proposals import seed_proposals
@@ -79,10 +78,6 @@ class ReasoningConfig:
     # True: converged boxes freeze and stop costing model FLOPs; False:
     # reference semantics, every surviving box is re-predicted each round
     sticky_convergence: bool = True
-    # fused CUDA decode kernel for the center phase. None = the kernel for
-    # CUDA tensors (CPU tensors run its plain version); False = always the
-    # plain version
-    use_decode_kernel: bool | None = None
 
     def __post_init__(self):
         tail = min(self.crop_chunk_tail, self.crop_chunk)
@@ -199,7 +194,6 @@ class ObjectDiscoveryEngine:
         self.device = resolve_device(device)
         self._objectness = objectness_fn
         self._classifier = classifier_fn
-        self._decode = center_singularity_scores if config.use_decode_kernel is False else fused_center_decode
 
     @property
     def image_slots(self) -> int:
@@ -255,7 +249,7 @@ class ObjectDiscoveryEngine:
             crops = self._crops(canvases, bc, ic)
             with tracing.span("models.objectness"):
                 out = self._objectness(crops, True)
-            sing, argmax_yx, union = self._decode(
+            sing, argmax_yx, union = fused_center_decode(
                 out["sdf_maps"].float().contiguous(), out["center_fields"].float().contiguous()
             )
             res = {"sing": sing, "argmax_yx": argmax_yx}
